@@ -7,11 +7,10 @@ the previous converged subspace (MATLAB restart_data,
 /root/reference/matlab/RAILSsolver.m:174-197).
 
 This example solves a 3-step sequence on a generalized 2D-Laplacian
-problem, prints the cold-vs-warm iteration counts (measured on v5e at
-n=4096: cold 120 -> warm 28/22, a 5.45x reduction), then demonstrates
+problem, prints the cold-vs-warm iteration counts, then demonstrates
 resuming the sequence in a "fresh process" from a checkpoint file.
 
-Run:  python examples/continuation_sequence.py  (CPU or TPU)
+Run:  python examples/continuation_sequence.py  (CPU or GPU)
 """
 
 import os
@@ -28,8 +27,7 @@ import scipy.sparse as sp
 
 import jax
 
-if jax.default_backend() == "cpu":
-    jax.config.update("jax_enable_x64", True)
+jax.config.update("jax_enable_x64", True)  # f64 is native on CPU and GPU
 
 import jax.numpy as jnp
 
@@ -37,7 +35,7 @@ import rails_tpu
 from rails_tpu.continuation import ContinuationSolver
 from rails_tpu.sparse.formats import sparse_from_scipy
 
-dtype = jnp.float32 if jax.default_backend() == "tpu" else jnp.float64
+dtype = jnp.float64
 n = 1024
 side = int(np.sqrt(n))
 rng = np.random.default_rng(0)

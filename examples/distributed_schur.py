@@ -32,8 +32,7 @@ import jax
 # RAILS_EXAMPLE_DEVICES=native to span the ambient accelerator devices
 if os.environ.get("RAILS_EXAMPLE_DEVICES", "cpu") == "cpu":
     jax.config.update("jax_platforms", "cpu")
-if jax.default_backend() == "cpu":
-    jax.config.update("jax_enable_x64", True)
+jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp
 import numpy as np

@@ -16,7 +16,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 
 import jax
 
-jax.config.update("jax_enable_x64", jax.default_backend() == "cpu")
+jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp
 import numpy as np

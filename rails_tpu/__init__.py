@@ -1,8 +1,8 @@
-"""rails_tpu: a TPU-native low-rank Lyapunov solver framework.
+"""rails_tpu: a low-rank Lyapunov solver framework in JAX.
 
 A from-scratch reimplementation of the capabilities of Sbte/RAILS
-(residual-approximation iterative Lyapunov solver) designed for TPU:
-JAX/XLA/Pallas compute, static-shape masked state, sharded multi-chip
+(residual-approximation iterative Lyapunov solver) for the GPU:
+JAX/XLA compute, static-shape masked state, sharded multi-device
 execution over a jax.sharding.Mesh, and C++ host-side runtime pieces
 (IO parsing, sparse LU) where the reference used native code.
 

@@ -2,7 +2,7 @@
 re-imagined for single-controller JAX.
 
 Usage:
-    python -m rails_tpu.cli [--params params.xml|json] [--platform cpu|tpu]
+    python -m rails_tpu.cli [--params params.xml|json] [--platform cpu|gpu]
                             [--only-eigenvalues] [--distributed] [directory]
 
 Reads A.mtx / B.mtx / M.mtx from the directory (main.cpp:62-72), builds
@@ -42,22 +42,23 @@ import sys
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="rails-tpu",
-        description="TPU-native low-rank Lyapunov solver (RAILS equivalent)")
+        description="Low-rank Lyapunov solver in JAX (RAILS equivalent)")
     ap.add_argument("directory", nargs="?", default=".",
                     help="directory with A.mtx, B.mtx, M.mtx")
     ap.add_argument("--params", help="XML (Teuchos) or JSON parameter file")
     ap.add_argument("--platform", default=None,
-                    help="force a JAX platform (e.g. cpu)")
+                    help="force a JAX platform (cpu or gpu; default: "
+                         "JAX's default backend)")
     ap.add_argument("--only-eigenvalues", action="store_true",
                     help="skip the solve; reload V.mtx/T.mtx")
     ap.add_argument("--tol", type=float, default=None)
     ap.add_argument("--maxit", type=int, default=None)
     ap.add_argument("--num-eigenvalues", type=int, default=None)
     ap.add_argument("--x64", action="store_true",
-                    help="enable float64 (CPU)")
+                    help="enable float64 (native on CPU and GPU)")
     ap.add_argument("--reorder", choices=["none", "rcm"], default="none",
                     help="symmetric bandwidth-reduction reordering before "
-                         "the solve (DIA-kernel friendly; deterministic, "
+                         "the solve (DIA friendly; deterministic, "
                          "so --only-eigenvalues reloads stay consistent)")
     ap.add_argument("--distributed", action="store_true",
                     help="multi-process SPMD run (one process per host); "
@@ -78,10 +79,13 @@ def main(argv=None) -> int:
 
     import jax
 
+    from rails_tpu.device import enable_compile_cache
+
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
     if args.x64:
         jax.config.update("jax_enable_x64", True)
+    enable_compile_cache()
 
     mesh = None
     if args.distributed:

@@ -1,6 +1,6 @@
 """Solver options - union of the reference's C++ parameters
 (/root/reference/src/LyapunovSolver.hpp:72-98) and the MATLAB opts struct
-(/root/reference/matlab/RAILSsolver.m:93-254), with TPU-specific knobs.
+(/root/reference/matlab/RAILSsolver.m:93-254), with device-specific knobs.
 
 Validation rules mirror the reference's error ids
 (RAILSsolver:InvalidOption etc.).
@@ -29,12 +29,11 @@ class SingularMassMatrixWarning(UserWarning):
 
 
 class ProjectedSolverPerformanceWarning(UserWarning):
-    """The projected dense solve will run the QR-iteration Schur
-    fallback on TPU (untagged general A at capacity > 128) - orders of
-    magnitude slower per iteration than the eigh/sign paths the
-    operator tags unlock.  No reference analogue (SLICOT sb03md is
-    CPU-cheap); this is a TPU-specific cost model the user should know
-    about."""
+    """The projected dense solve will run the while_loop-serial
+    QR-iteration Schur fallback (untagged general A at capacity > 128,
+    on a backend without LAPACK Schur - any but the CPU) - far slower
+    per iteration than the eigh/sign paths the operator tags unlock.
+    No reference analogue (SLICOT sb03md is CPU-cheap)."""
 
 
 class ProjectionMethodWarning(UserWarning):
@@ -85,7 +84,7 @@ class SolverOptions:
     fast_orthogonalization: bool = True  # block CGS(2) vs per-column MGS
     ortho_drop_tol: float = 1e-8         # MATLAB Morth tol
 
-    # --- TPU-specific ---
+    # --- device-specific ---
     dtype: Any = None                    # None -> jax default real dtype
     max_space: Optional[int] = None      # hard cap on the padded basis buffer
     projected_solver: str = "auto"       # 'auto'|'schur'|'eigh'|'sign'|'kron'
@@ -98,7 +97,7 @@ class SolverOptions:
                                          # transform kernels (utils/
                                          # compensated.py), restoring ~f64-
                                          # quality Gram/Lanczos/ortho scalars
-                                         # from f32 storage on TPU
+                                         # from f32 storage
     timevec_chunk: int = 8               # compiled=True runs the
                                          # while_loop in chunks of this
                                          # many iterations so timevec has

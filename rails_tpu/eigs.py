@@ -4,7 +4,7 @@ The reference computes the dominant eigenpairs of the (symmetric) solution
 operator with Anasazi's block Krylov-Schur
 (/root/reference/src/Epetra_OperatorWrapper.cpp:147-222), dropping
 eigenvalues below a tolerance; MATLAB uses ARPACK ``eigs`` on the residual
-operator (RAILSsolver.m:392-394).  The TPU-native equivalent is
+operator (RAILSsolver.m:392-394).  The JAX equivalent here is
 thick-restarted Lanczos with full reorthogonalization: a fixed-size
 Krylov sweep is one jitted ``lax.scan`` (m-sized GEMV + small dense ops),
 restarts keep the leading Ritz vectors, and convergence is checked on the
@@ -21,6 +21,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from rails_tpu import device
 from rails_tpu.operators import CallableOperator, LinearOperator
 from rails_tpu.utils.dtypes import highest_precision
 
@@ -249,7 +250,7 @@ def eigs_general(
     Each sweep extends an orthonormal *complex* basis by fully
     reorthogonalized Arnoldi continuation, recomputes the Rayleigh
     quotient G = Q^H A Q, and solves the small dense eigenproblem by
-    complex Schur (LAPACK on CPU, our QR-iteration kernel on TPU) +
+    complex Schur (LAPACK on CPU, our QR-iteration kernel elsewhere) +
     protected triangular back-substitution (ztrevc-style; round 4
     replaces the round-3 fixed-shift inverse iteration, which could
     return mixed cluster members when two Ritz values sat within ~10 eps
@@ -297,7 +298,7 @@ def eigs_general(
         inverse iteration, each vector is tied to its own Schur position
         - two Ritz values within eps of each other still yield
         independent vectors (supports differ by construction)."""
-        if jax.default_backend() == "cpu":
+        if device.has_lapack_schur():
             t, u = jax.lax.linalg.schur(h.astype(cdtype))
         else:
             t, u = complex_schur(h.astype(cdtype))

@@ -1,4 +1,4 @@
-"""Dense (projected) continuous-time Lyapunov solvers, TPU-native.
+"""Dense (projected) continuous-time Lyapunov solvers in pure JAX.
 
 Solves the k-by-k dense equation
 
@@ -7,8 +7,8 @@ Solves the k-by-k dense equation
 which is the role SLICOT's ``sb03md`` (standard, /root/reference/src/
 SlicotWrapper.cpp:8-49) and ``sg03ad`` (generalized, /root/reference/matlab/
 mex/lyap.c:55-84) play in the reference.  The reference calls LAPACK/SLICOT
-Fortran; on TPU there is no LAPACK Schur, so each method here is a pure-JAX,
-jittable kernel built from MXU-friendly primitives:
+Fortran; XLA offers LAPACK Schur only on the CPU, so each method here is a
+pure-JAX, jittable kernel built from dense linear-algebra primitives:
 
 - ``eigh``: symmetric-A fast path.  ``A = Q diag(w) Q'`` then
   ``X = -Q ((Q'CQ) / (w_i + w_j)) Q'``.  One symmetric eigendecomposition +
@@ -21,7 +21,7 @@ jittable kernel built from MXU-friendly primitives:
   This matches sb03md's capability envelope (indefinite, non-Hurwitz A, as
   exercised by /root/reference/test/LyapunovSolver_test.cpp:181-200).
 - ``sign``: Newton iteration for the matrix sign function - pure matmul +
-  inverse, quadratically convergent, the fastest TPU path for Hurwitz A.
+  inverse, quadratically convergent, the fastest path for Hurwitz A.
 - ``kron``: O(k^6) Kronecker linear solve; robust oracle and small-k
   fallback.
 
@@ -38,6 +38,7 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 
+from rails_tpu import device
 from rails_tpu.linalg.schur_qr import complex_schur
 from rails_tpu.utils.dtypes import complex_dtype_for, highest_precision
 
@@ -129,7 +130,7 @@ def _reduce_generalized(a, c, e, e_kind: str):
 
 def _eigh_factor(a):
     """Factored Lyapunov solver for symmetric A: one eigh, then each solve
-    is 2 matmuls + a Cauchy scaling (MXU speed-of-light).  The factored
+    is 2 matmuls + a Cauchy scaling.  The factored
     form makes iterative refinement nearly free."""
     w, q = jnp.linalg.eigh(_sym(a))
     denom = w[:, None] + w[None, :]
@@ -163,9 +164,9 @@ def _schur_factor(a, max_sweeps: Optional[int] = None):
     k = a.shape[0]
     cdtype = complex_dtype_for(a.dtype)
     # On CPU, LAPACK's Schur is available through XLA (zgees); it is the
-    # same kernel the reference uses inside sb03md.  On TPU there is no
-    # such primitive, so our own Hessenberg + shifted-QR kernel runs.
-    if jax.default_backend() == "cpu":
+    # same kernel the reference uses inside sb03md.  Other backends have
+    # no such primitive, so our own Hessenberg + shifted-QR kernel runs.
+    if device.has_lapack_schur():
         t, u = jax.lax.linalg.schur(a.astype(cdtype))
     else:
         t, u = complex_schur(a.astype(cdtype), max_sweeps=max_sweeps)
@@ -193,7 +194,7 @@ def _schur_factor(a, max_sweeps: Optional[int] = None):
 
 
 def _lyap_sign(a, c, iterations: int = 30):
-    """Newton sign iteration: Hurwitz A only; all matmul/inverse (MXU).
+    """Newton sign iteration: Hurwitz A only; all matmul/inverse.
 
     Z_{j+1} = (s Z_j + (s Z_j)^{-1}) / 2 with determinant scaling s,
     Q_{j+1} = (s Q_j + (s Z_j)^{-T} Q_j (s Z_j)^{-1}) / 2.
@@ -263,9 +264,9 @@ def lyap(
       e: optional (k, k) nonsingular matrix (generalized equation).
       method: 'schur' (general A), 'eigh' (symmetric A), 'sign'
         (Hurwitz A), or 'kron' (small-k robust fallback / oracle).
-        TPU cost at k=120 f32 (v5e, measured round 3): eigh ~0.3 ms,
-        sign ~0.4 ms, schur ~176 ms - the QR-iteration Schur is
-        while_loop-serial and latency-bound on TPU, so tag operators
+        Off the CPU the QR-iteration Schur is while_loop-serial and
+        latency-bound, far slower per call than eigh or sign, so tag
+        operators
         (is_symmetric / is_hurwitz) or set projected_solver explicitly
         for per-iteration solves; 'schur' is the accuracy anchor and
         the general-pencil fallback, not the hot path.
@@ -325,7 +326,7 @@ def lyap(
     if method in ("eigh", "schur"):
         # Iterative refinement with the cached factorization: one cheap
         # correction recovers most of the accuracy float32 loses in the
-        # transform roundoff (TPU path; no-op cost at float64).
+        # transform roundoff (no-op cost at float64).
         for _ in range(refine):
             r = a_red @ y + y @ a_red.T + ct
             y = y - slv(-r)

@@ -1,7 +1,7 @@
-"""Complex Schur decomposition as a pure-JAX, jittable TPU kernel.
+"""Complex Schur decomposition as a pure-JAX, jittable kernel.
 
-TPU/XLA has no nonsymmetric eigensolver or Schur primitive (LAPACK's
-``dhseqr``/``dgees`` live on the CPU only), but the RAILS projected solve
+XLA has a Schur primitive on the CPU only (LAPACK's ``dhseqr``/``dgees``;
+rails_tpu.device.has_lapack_schur), but the RAILS projected solve
 needs exactly sb03md's capability: factor a general real k-by-k matrix
 A = U T U^H with T upper triangular (/root/reference/src/SlicotWrapper.cpp:
 8-49 does this internally via LAPACK).  We build it from scratch:
@@ -11,16 +11,16 @@ A = U T U^H with T upper triangular (/root/reference/src/SlicotWrapper.cpp:
 2. ``complex_schur``: single-shift QR iteration with Wilkinson shifts and
    aggressive deflation.  Each sweep is one *full-size* complex QR
    factorization (an XLA-native batched Householder kernel) - a deliberate
-   TPU-first choice: instead of the scalar Givens bulge-chase LAPACK uses
-   (deeply sequential), we pay O(k^3) of MXU-friendly work per sweep and
-   converge in O(k) sweeps.  Deflated trailing blocks stay upper
+   choice for accelerators: instead of the scalar Givens bulge-chase
+   LAPACK uses (deeply sequential), we pay O(k^3) of dense work per sweep
+   and converge in O(k) sweeps.  Deflated trailing blocks stay upper
    triangular under full-matrix QR steps (block-triangular structure is
    preserved), so masking the active window is unnecessary; only the
    *shift* tracks the active window.
 
 The projected matrices in RAILS are small (k <= a few hundred), so the
-O(k^4) total is microseconds-to-milliseconds on an MXU and this kernel is
-called once per solver iteration.
+O(k^4) total is small next to the m-sized work, and this kernel is called
+once per solver iteration.
 """
 
 from __future__ import annotations

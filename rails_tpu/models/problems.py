@@ -19,6 +19,7 @@ import numpy as np
 
 __all__ = [
     "laplacian2",
+    "laplacian2_sparse",
     "laplacian1d",
     "tridiagonal_problem",
     "random_sparse",
@@ -40,6 +41,20 @@ def laplacian2(n: int) -> np.ndarray:
     s = np.diag(np.ones(m - 1), 1) + np.diag(np.ones(m - 1), -1)
     eye = np.eye(m)
     return np.kron(eye, t) + np.kron(s, eye)
+
+
+def laplacian2_sparse(n: int):
+    """``laplacian2(n)`` as a scipy CSR matrix, built by sparse Kronecker
+    products: O(n) memory, so it reaches grids of millions of points."""
+    import scipy.sparse as sp
+
+    m = int(math.isqrt(n))
+    if m * m != n:
+        raise ValueError(f"n={n} must be a perfect square")
+    t = sp.diags([1.0, -4.0, 1.0], [-1, 0, 1], (m, m))
+    s = sp.diags([1.0, 1.0], [-1, 1], (m, m))
+    eye = sp.eye(m)
+    return (sp.kron(eye, t) + sp.kron(s, eye)).tocsr()
 
 
 def laplacian1d(m: int) -> np.ndarray:

@@ -1,12 +1,12 @@
-"""Linear operator protocol - the TPU equivalent of the reference's
+"""Linear operator protocol - the JAX equivalent of the reference's
 backend wrapper layer (L2).
 
 The reference's core solver is a C++ template over duck-typed backend
 wrappers (Solver<Matrix, MultiVector, DenseMatrix>,
 /root/reference/src/LyapunovSolverDecl.hpp:9-51) with Stl/Epetra/Scalar
-implementations.  The TPU-native analogue: multivectors are plain
+implementations.  The analogue here: multivectors are plain
 (possibly sharded) jax.Arrays - JAX's sharding model already makes
-V.T @ W work identically on one chip or a mesh - so only the *operator*
+V.T @ W work identically on one device or a mesh - so only the *operator*
 (the sparse/structured/matrix-free A) needs an abstraction.
 
 Every operator is a registered pytree, so operators can be passed through
@@ -95,7 +95,7 @@ class LinearOperator:
         still promote the result (closed-over constants are not cast) -
         build the closure at the solve dtype.  Payload-carrying
         subclasses override so a float64-built operator can drive a
-        float32 solve (TPU) without mixed-dtype scatters.
+        float32 solve without mixed-dtype scatters.
         """
         return self
 
@@ -136,9 +136,9 @@ class _TransposedOperator(LinearOperator):
 
 @jax.tree_util.register_pytree_node_class
 class DenseOperator(LinearOperator):
-    """A dense m-by-n matrix.  The right answer on TPU for m up to a few
-    thousand: a dense m x m SpMM at these sizes runs at MXU speed-of-light
-    and beats any sparse format."""
+    """A dense m-by-n matrix.  The right answer for m up to a few
+    thousand: a dense m x m product at these sizes runs as one GEMM and
+    beats any sparse format."""
 
     def __init__(self, a, *, is_symmetric=False, is_spd=False, is_hurwitz=False):
         self.a = jnp.asarray(a) if not isinstance(a, jax.core.Tracer) else a
@@ -266,7 +266,7 @@ class IdentityOperator(LinearOperator):
 class CallableOperator(LinearOperator):
     """Matrix-free operator from jax-traceable callables.
 
-    The TPU analogue of the reference's Epetra_Operator-wrapped
+    The analogue of the reference's Epetra_Operator-wrapped
     SchurOperator (matrix-free Schur complement,
     /root/reference/src/SchurOperator.cpp:201-233) and of MATLAB's
     function-handle A (/root/reference/matlab/RAILSsolver.m:259-270).

@@ -1,11 +1,8 @@
-"""Distributed windowed-ELL SpMM with explicit halo exchange.
+"""Distributed ELL SpMM with explicit halo exchange.
 
-Round 2 left unstructured sparsity without a distributed fast path:
-``shard_operator`` dropped ELL/HYB payloads to GSPMD with the Pallas
-kernel disabled, so the windowed-ELL kernel ran single-chip only.  This
-module extends the explicit-halo shard_map pattern (halo_spmm.py) to
-windowed-ELL payloads, covering the reference's baseline case - Epetra's
-SpMV on *arbitrary* CrsMatrix sparsity under MPI row distribution
+Extends the explicit-halo shard_map pattern (halo_spmm.py) to ELL
+payloads, covering the reference's baseline case - Epetra's SpMV on
+*arbitrary* CrsMatrix sparsity under MPI row distribution
 (/root/reference/src/Epetra_OperatorWrapper.cpp:75-91) - for every
 matrix whose per-shard remote references stay within the neighbor slabs
 (banded/structured sparsity, and general sparsity after RCM reordering).
@@ -14,24 +11,16 @@ Design (host-side setup, device-side apply):
 
 - each device owns a contiguous row slab of x and of the ELL payload;
 - the builder rebases every column index into the *extended local*
-  coordinate system ``[0, halo_lo + m_loc + halo_hi)`` where ``halo_lo``
+  coordinate system ``[0, halo_lo + m_loc + halo_hi)``, where ``halo_lo``
   / ``halo_hi`` are the worst-case remote spans over all shards (uniform
-  so the SPMD program is homogeneous);
-- each shard's rebased payload is windowized with one static window
-  width ``w`` shared across shards (``ell_windowize(force_w=...)``) and
-  the per-shard arrays are stacked into globally-sharded buffers;
+  so the SPMD program is homogeneous), and stacks the per-shard indices
+  with the values into row-sharded buffers;
 - the apply ppermutes the boundary rows to both neighbors, concatenates
-  ``[halo_lo | x_loc | halo_hi]``, and runs the per-chip windowed-ELL
-  kernel over the extended operand - on TPU the Pallas kernel
-  (sparse/ell_spmm.py), elsewhere a jnp emulation of the same windowed
-  schedule (so the CPU mesh tests exercise the exact payload the TPU
-  kernel consumes).
+  ``[halo_lo | x_loc | halo_hi]``, and runs the plain ELL gather
+  (``EllMatrix.matmat``) over the extended slab.
 
-Unlike the DIA halo path there is no interior/boundary split: the
-window DMA addresses the extended operand directly, so the permutes
-must land before the kernel starts.  The halo is ``(halo_lo + halo_hi)
-* s`` elements - a band's worth - so the non-overlapped exchange is a
-latency, not bandwidth, cost; revisit if profiles say otherwise.
+The halo is ``(halo_lo + halo_hi) * s`` elements - a band's worth - so
+the exchange is a latency, not a bandwidth, cost.
 """
 
 from __future__ import annotations
@@ -46,17 +35,7 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from rails_tpu.operators import LinearOperator
-from rails_tpu.parallel.mesh import ROW_AXIS
-import rails_tpu.sparse.ell_spmm as ell_spmm_mod
-from rails_tpu.sparse.ell_spmm import (
-    _CHUNK,
-    _W_CAP,
-    WindowedEll,
-    ell_spmm_t,
-    group_windows,
-    window_fits_vmem,
-    windowize_arrays,
-)
+from rails_tpu.parallel.mesh import ROW_AXIS, row_sharding
 from rails_tpu.sparse.formats import EllMatrix
 
 __all__ = ["HaloEll", "build_halo_ell", "halo_ell_spmm", "HaloEllOperator",
@@ -66,246 +45,98 @@ __all__ = ["HaloEll", "build_halo_ell", "halo_ell_spmm", "HaloEllOperator",
 @jax.tree_util.register_pytree_node_class
 @dataclasses.dataclass
 class HaloEll:
-    """Stacked per-shard windowed-ELL payload in extended-local
-    coordinates.  ``c0`` is (nd*nb_loc,) sharded over rows; ``lidx`` /
-    ``values`` are (L, m) transposed, sharded over their second axis.
-    ``halo_lo``/``halo_hi``/``w`` are static and uniform across shards;
-    each shard's windows live in its own (m_loc + halos) column space."""
+    """Stacked per-shard ELL payload in extended-local coordinates.
+    ``indices`` / ``values`` are (m, L), sharded over rows; shard r's
+    indices address its own ``[halo_lo | x_loc | halo_hi]`` slab.
+    ``halo_lo``/``halo_hi`` are static and uniform across shards."""
 
-    c0: jax.Array                    # (nd * nb_loc,) int32
-    lidx: jax.Array                  # (L, m) int32, window-local
-    values: jax.Array                # (L, m)
+    indices: jax.Array               # (m, L) int32, extended-local
+    values: jax.Array                # (m, L)
     halo_lo: int
     halo_hi: int
-    w: int
     shape: Tuple[int, int]           # global (m, m)
-    # multi-chunk grouping (uniform across shards; see
-    # sparse.ell_spmm.group_windows / _ell_spmm_t_nc_impl)
-    c0s: Optional[jax.Array] = None  # (nd * nb_loc / nc,) int32
-    offs: Optional[jax.Array] = None  # (nd * nb_loc,) int32
-    w_super: int = 0
-    nc: int = 1
 
     def astype(self, dtype) -> "HaloEll":
         if self.values.dtype == jnp.dtype(dtype):
             return self
-        return HaloEll(self.c0, self.lidx, self.values.astype(dtype),
-                       self.halo_lo, self.halo_hi, self.w, self.shape,
-                       self.c0s, self.offs, self.w_super, self.nc)
+        return HaloEll(self.indices, self.values.astype(dtype),
+                       self.halo_lo, self.halo_hi, self.shape)
 
     def tree_flatten(self):
-        return (self.c0, self.lidx, self.values, self.c0s, self.offs), (
-            self.halo_lo, self.halo_hi, self.w, self.shape, self.w_super,
-            self.nc)
+        return (self.indices, self.values), (self.halo_lo, self.halo_hi,
+                                             self.shape)
 
     @classmethod
     def tree_unflatten(cls, aux, children):
-        return cls(children[0], children[1], children[2], aux[0], aux[1],
-                   aux[2], aux[3], children[3], children[4], aux[4],
-                   aux[5])
+        return cls(children[0], children[1], *aux)
 
 
-def build_halo_ell(ell: EllMatrix, mesh: Mesh,
-                   w_cap: int = _W_CAP) -> Optional[HaloEll]:
+def build_halo_ell(ell: EllMatrix, mesh: Mesh) -> Optional[HaloEll]:
     """Host-side shard analysis.  Returns None when the decomposition
-    does not qualify: non-square payload, rows not divisible into
-    128-multiple slabs, remote references reaching beyond the adjacent
-    slabs, or any shard's window exceeding ``w_cap``."""
+    does not qualify: non-square payload, rows not divisible by the
+    mesh, or remote references reaching beyond the adjacent slabs."""
     m, n = ell.shape
     nd = mesh.devices.size
-    if m != n or m % nd or (m // nd) % _CHUNK:
+    if m != n or m % nd:
         return None
     m_loc = m // nd
-    indices = np.asarray(ell.indices)
-    values = np.asarray(ell.values)
+    indices = np.asarray(ell.indices).astype(np.int64)
     # worst-case remote spans over all shards (uniform halos keep the
     # SPMD program homogeneous); padding slots carry row-local indices
-    # (formats._ell_from_scipy) so they never widen the spans
-    halo_lo = halo_hi = 0
-    for r in range(nd):
-        r0 = r * m_loc
-        blk = indices[r0:r0 + m_loc]
-        halo_lo = max(halo_lo, r0 - int(blk.min()))
-        halo_hi = max(halo_hi, int(blk.max()) - (r0 + m_loc - 1))
-    halo_lo, halo_hi = max(halo_lo, 0), max(halo_hi, 0)
+    # (formats.ell_arrays_from_scipy) so they never widen the spans
+    r0 = (np.arange(m) // m_loc * m_loc)[:, None]
+    halo_lo = max(int((r0 - indices).max()), 0)
+    halo_hi = max(int((indices - (r0 + m_loc - 1)).max()), 0)
     if halo_lo > m_loc or halo_hi > m_loc:
         return None  # needs rows beyond the adjacent slabs
-    ext = halo_lo + m_loc + halo_hi
-    # pass 1: uniform window width = max over shards of the tight width
-    w = 0
-    shards = []
-    for r in range(nd):
-        r0 = r * m_loc
-        loc = (indices[r0:r0 + m_loc] - (r0 - halo_lo)).astype(np.int32)
-        res = windowize_arrays(loc, values[r0:r0 + m_loc], (m_loc, ext),
-                               w_cap=w_cap, min_rows=_CHUNK)
-        if res is None:
-            return None
-        shards.append(loc)
-        w = max(w, res[3])
-    # pass 2: re-windowize at the shared width and stack
-    c0_all, lidx_all, val_all = [], [], []
-    for r in range(nd):
-        res = windowize_arrays(shards[r], values[r * m_loc:(r + 1) * m_loc],
-                               (m_loc, ext), w_cap=w_cap, force_w=w,
-                               min_rows=_CHUNK)
-        if res is None:
-            return None
-        c0, lidx, vals, _ = res
-        c0_all.append(c0)
-        lidx_all.append(lidx)
-        val_all.append(vals)
-    c0 = np.concatenate(c0_all)
-    lidx = np.ascontiguousarray(np.concatenate(lidx_all, axis=0).T)
-    vals = np.ascontiguousarray(np.concatenate(val_all, axis=0).T)
-    # multi-chunk grouping, uniform (nc, w_super) across shards so the
-    # SPMD kernel is homogeneous; per-shard group tables are stacked
-    # like c0.  Falls back to nc=1 when any shard's windows jump.
-    ext_pad = -(-ext // _CHUNK) * _CHUNK
-    nb_loc = m_loc // _CHUNK
-    c0s = offs = None
-    w_super, nc = 0, 1
-    for cand in (ell_spmm_mod._NC_DEFAULT, 2):
-        if cand <= 1 or nb_loc % cand:
-            continue
-        per = [group_windows(c0_all[r], w, cand, ext_pad) for r in
-               range(nd)]
-        ws = max(p[2] for p in per)
-        if ws > min(w + cand * _CHUNK, ext_pad):
-            continue
-        per = [group_windows(c0_all[r], w, cand, ext_pad, force_ws=ws)
-               for r in range(nd)]
-        c0s = jnp.asarray(np.concatenate([p[0] for p in per]))
-        offs = jnp.asarray(np.concatenate([p[1] for p in per]))
-        w_super, nc = ws, cand
-        break
-    payload = HaloEll(jnp.asarray(c0), jnp.asarray(lidx),
-                      jnp.asarray(vals), halo_lo, halo_hi, w, (m, n),
-                      c0s, offs, w_super, nc)
+    local = (indices - (r0 - halo_lo)).astype(np.int32)
+    payload = HaloEll(jnp.asarray(local), jnp.asarray(ell.values),
+                      halo_lo, halo_hi, (m, n))
     return _place(payload, mesh)
 
 
 def _place(p: HaloEll, mesh: Mesh) -> HaloEll:
     row = NamedSharding(mesh, P(ROW_AXIS))
-    return HaloEll(
-        jax.device_put(p.c0, row),
-        jax.device_put(p.lidx, NamedSharding(mesh, P(None, ROW_AXIS))),
-        jax.device_put(p.values, NamedSharding(mesh, P(None, ROW_AXIS))),
-        p.halo_lo, p.halo_hi, p.w, p.shape,
-        None if p.c0s is None else jax.device_put(p.c0s, row),
-        None if p.offs is None else jax.device_put(p.offs, row),
-        p.w_super, p.nc)
+    return HaloEll(jax.device_put(p.indices, row),
+                   jax.device_put(p.values, row),
+                   p.halo_lo, p.halo_hi, p.shape)
 
 
-def _windowed_apply_jnp(c0, lidx, values, xt_ext, w: int):
-    """jnp emulation of the Pallas windowed kernel's schedule: per
-    128-row chunk, slice the (s, w) window at c0[i] and gather each
-    slot's 128 lanes.  Runs anywhere jax runs; used off-TPU so the CPU
-    mesh tests consume the exact distributed payload the TPU kernel
-    does."""
-    ell_l, m_loc = lidx.shape
-    s = xt_ext.shape[0]
-    nb = m_loc // _CHUNK
-    lidx_c = lidx.reshape(ell_l, nb, _CHUNK).transpose(1, 0, 2)
-    val_c = values.reshape(ell_l, nb, _CHUNK).transpose(1, 0, 2)
-
-    def one_chunk(args):
-        c0_i, lidx_i, val_i = args
-        win = jax.lax.dynamic_slice(
-            xt_ext, (jnp.int32(0), c0_i), (s, w))
-        g = jnp.take(win, lidx_i, axis=1)          # (s, L, 128)
-        return jnp.einsum("slc,lc->sc", g, val_i)
-
-    out = jax.lax.map(one_chunk, (c0, lidx_c, val_c))  # (nb, s, 128)
-    return out.transpose(1, 0, 2).reshape(s, m_loc)
-
-
-def _halo_ell_body(p: HaloEll, c0_loc, lidx_loc, val_loc, x_loc,
-                   nd: int, use_kernel: bool, c0s_loc=None,
-                   offs_loc=None):
+def _halo_ell_body(p: HaloEll, idx_loc, val_loc, x_loc, nd: int):
     """Per-shard apply (inside shard_map): exchange halos, extend the
-    operand, run the windowed kernel (multi-chunk-grouped when the
-    payload carries group tables)."""
+    operand, gather."""
     m_loc = x_loc.shape[0]
     fwd = [(i, i + 1) for i in range(nd - 1)]
     bwd = [(i + 1, i) for i in range(nd - 1)]
     parts = []
     if p.halo_lo:
         parts.append(jax.lax.ppermute(
-            x_loc[m_loc - p.halo_lo:, :], ROW_AXIS, fwd))
+            x_loc[m_loc - p.halo_lo:], ROW_AXIS, fwd))
     parts.append(x_loc)
     if p.halo_hi:
-        parts.append(jax.lax.ppermute(x_loc[:p.halo_hi, :], ROW_AXIS, bwd))
+        parts.append(jax.lax.ppermute(x_loc[:p.halo_hi], ROW_AXIS, bwd))
     x_ext = jnp.concatenate(parts, axis=0) if len(parts) > 1 else x_loc
-    ext = x_ext.shape[0]
-    xt = x_ext.T                      # (s, ext); both paths pad columns
-    if use_kernel:                    # to the 128-aligned window space
-        well = WindowedEll(c0_loc, lidx_loc, val_loc, p.w, (m_loc, ext),
-                           None, c0s_loc, offs_loc,
-                           p.w_super if c0s_loc is not None else 0,
-                           p.nc if c0s_loc is not None else 1)
-        return ell_spmm_t(well, xt).T
-    ext_pad = -(-ext // _CHUNK) * _CHUNK
-    if ext_pad != ext:
-        xt = jnp.pad(xt, ((0, 0), (0, ext_pad - ext)))
-    return _windowed_apply_jnp(c0_loc, lidx_loc, val_loc, xt, p.w).T
+    ell = EllMatrix(idx_loc, val_loc, (m_loc, x_ext.shape[0]))
+    return ell.matmat(x_ext)
 
 
-def halo_ell_spmm(p: HaloEll, x: jax.Array, mesh: Mesh,
-                  use_kernel: Optional[bool] = None) -> jax.Array:
-    """A @ x over the mesh with explicit neighbor halo exchange.
-
-    ``use_kernel`` forces the Pallas (True) or jnp-emulation (False)
-    per-chip path; default picks Pallas exactly when the single-chip
-    dispatcher would (TPU backend, f32, window fits VMEM)."""
-    if use_kernel is None:
-        use_kernel = (jax.default_backend() == "tpu"
-                      and x.dtype == jnp.float32
-                      and window_fits_vmem(
-                          _as_well(p), x.shape[1], x.dtype.itemsize,
-                          nc1=True))
+def halo_ell_spmm(p: HaloEll, x: jax.Array, mesh: Mesh) -> jax.Array:
+    """A @ x over the mesh with explicit neighbor halo exchange."""
     nd = mesh.devices.size
-    # degrade to the ungrouped kernel when only the super-window scratch
-    # overflows the VMEM budget at this s (ADVICE r03)
-    grouped = (use_kernel and p.c0s is not None
-               and window_fits_vmem(_as_well(p), x.shape[1],
-                                    x.dtype.itemsize))
-
-    if grouped:
-        @functools.partial(
-            jax.shard_map, mesh=mesh,
-            in_specs=(P(ROW_AXIS), P(None, ROW_AXIS), P(None, ROW_AXIS),
-                      P(ROW_AXIS, None), P(ROW_AXIS), P(ROW_AXIS)),
-            out_specs=P(ROW_AXIS, None),
-            check_vma=False)  # pallas_call outputs carry no vma info
-        def run_g(c0_loc, lidx_loc, val_loc, x_loc, c0s_loc, offs_loc):
-            return _halo_ell_body(p, c0_loc, lidx_loc, val_loc, x_loc,
-                                  nd, use_kernel, c0s_loc, offs_loc)
-
-        return run_g(p.c0, p.lidx, p.values, x, p.c0s, p.offs)
 
     @functools.partial(
         jax.shard_map, mesh=mesh,
-        in_specs=(P(ROW_AXIS), P(None, ROW_AXIS), P(None, ROW_AXIS),
-                  P(ROW_AXIS, None)),
-        out_specs=P(ROW_AXIS, None),
-        check_vma=False)  # pallas_call outputs carry no vma info
-    def run(c0_loc, lidx_loc, val_loc, x_loc):
-        return _halo_ell_body(p, c0_loc, lidx_loc, val_loc, x_loc, nd,
-                              use_kernel)
+        in_specs=(P(ROW_AXIS), P(ROW_AXIS), P(ROW_AXIS)),
+        out_specs=P(ROW_AXIS))
+    def run(idx_loc, val_loc, x_loc):
+        return _halo_ell_body(p, idx_loc, val_loc, x_loc, nd)
 
-    return run(p.c0, p.lidx, p.values, x)
-
-
-def _as_well(p: HaloEll) -> WindowedEll:
-    """Shape-only WindowedEll view for the VMEM-budget check."""
-    return WindowedEll(p.c0, p.lidx, p.values, p.w, p.shape, None,
-                       p.c0s, p.offs, p.w_super, p.nc)
+    return run(p.indices, p.values, x)
 
 
 @jax.tree_util.register_pytree_node_class
 class HaloEllOperator(LinearOperator):
-    """LinearOperator running the distributed windowed-ELL SpMM.
+    """LinearOperator running the distributed ELL SpMM.
 
     Built by ``shard_operator`` from a SparseOperator with ELL payloads
     when ``build_halo_ell`` accepts both directions; payloads are placed
@@ -351,8 +182,6 @@ class HaloEllOperator(LinearOperator):
         return halo_ell_spmm(self.bwd, x, self.mesh)
 
     def to_dense(self):
-        from rails_tpu.parallel.mesh import row_sharding
-
         eye = jax.device_put(
             jnp.eye(self.shape[1], dtype=self.fwd.values.dtype),
             row_sharding(self.mesh))
@@ -375,8 +204,7 @@ class HaloEllOperator(LinearOperator):
 @jax.tree_util.register_pytree_node_class
 class HaloHybOperator(LinearOperator):
     """Distributed HYB apply: the dense diagonals ride the explicit-halo
-    DIA path (overlapped Pallas stencil, halo_spmm.py), the irregular
-    remainder the windowed-ELL halo path - each with its own neighbor
+    DIA path (halo_spmm.py), the irregular remainder the ELL halo path - each with its own neighbor
     exchange, summed.  ``rmat_op``, when set, computes the whole A'x
     (used when the transpose payload is stored as a single ELL rather
     than a HYB split); otherwise the transpose is the sum of the parts'

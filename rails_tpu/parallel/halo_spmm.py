@@ -9,22 +9,19 @@ Epetra SpMV does (column-halo import inside Epetra_CrsMatrix::Apply,
 - each device owns a contiguous row slab of x and of the diagonal data;
 - the only remote rows a device needs are the ``span_lo`` rows below and
   ``span_hi`` rows above its slab - exchanged with its two neighbors by
-  ``lax.ppermute`` over the ICI ring;
+  ``lax.ppermute``;
 - the bulk (interior) contribution depends only on local data, so XLA's
-  latency-hiding scheduler overlaps it with the permutes: the code
+  latency-hiding scheduler can overlap it with the permutes: the code
   computes ``y = interior(x_local) + boundary(halos)`` with the first
-  term collective-free - and the interior SpMM rides the per-chip Pallas
-  kernel on TPU (``dia_spmm`` dispatch), which the pure-GSPMD path
-  cannot do (an unpartitionable pallas_call would be replicated by the
-  partitioner).
+  term collective-free.
 
 Boundary devices receive zeros from ppermute's non-cyclic permutation,
 which is exactly the Dirichlet zero-padding the dense formats use.
 
 ``LyapunovSolver(mesh=...)`` routes DIA operators through
 ``HaloDiaOperator`` whenever the slab geometry allows (see
-``parallel.sharded.shard_operator``), so the production multi-chip path
-is the overlapped-halo Pallas one, not the partitioner-derived fallback.
+``parallel.sharded.shard_operator``), so the production multi-device
+path is the overlapped-halo one, not the partitioner-derived fallback.
 """
 
 from __future__ import annotations
@@ -41,10 +38,6 @@ from rails_tpu.parallel.mesh import ROW_AXIS, col_sharding, row_sharding
 from rails_tpu.sparse.formats import DiaMatrix
 
 __all__ = ["halo_dia_spmm", "HaloDiaOperator", "halo_geometry_ok"]
-
-# test hook: route the shard body through the halo-aware Pallas kernel
-# off-TPU (under pltpu.force_tpu_interpret_mode) regardless of backend
-_FORCE_HALO_KERNEL = False
 
 
 def halo_geometry_ok(dia: DiaMatrix, mesh: Mesh) -> bool:
@@ -68,50 +61,24 @@ def _halo_spmm_sharded(data, x, offsets: Tuple[int, ...], mesh: Mesh):
     span_lo = max(0, -min(offsets))
     span_hi = max(0, max(offsets))
 
-    from rails_tpu.sparse.spmm import (_round_up, dia_spmm,
-                                       dia_spmm_t_halo, halo_block_rows)
-
-    s = x.shape[1]
-    pad_l = _round_up(span_lo, 128)
-    tail = _round_up(span_hi, 128)
-    use_halo_kernel = (
-        (jax.default_backend() == "tpu" or _FORCE_HALO_KERNEL)
-        and x.dtype == jnp.float32
-        and span_lo > 0 and span_hi > 0
-        and (m_loc >= 4096 or _FORCE_HALO_KERNEL)
-        and halo_block_rows(m_loc, s, len(offsets), pad_l, tail) is not None)
-
     @functools.partial(
         jax.shard_map, mesh=mesh,
         in_specs=(P(None, ROW_AXIS), P(ROW_AXIS, None)),
-        out_specs=P(ROW_AXIS, None),
-        check_vma=False)  # pallas_call outputs carry no vma info
+        out_specs=P(ROW_AXIS, None))
     def run(data_loc, x_loc):
         # neighbor exchange: my bottom rows -> next device's lower halo,
         # my top rows -> previous device's upper halo
         fwd = [(i, i + 1) for i in range(nd - 1)]
         bwd = [(i + 1, i) for i in range(nd - 1)]
         dia_loc = DiaMatrix(data_loc, offsets, (m_loc, m_loc))
-        if use_halo_kernel:
-            # transposed layout end to end: the per-chip kernel is the
-            # halo-aware variant that DMAs the (tiny) halo buffers into
-            # its edge-block windows - no XLA boundary-patch passes (the
-            # previous structure measured 1.72x of the plain kernel at
-            # nd=1; this one is transposes + kernel only)
-            xt = x_loc.T
-            hl_t = jax.lax.ppermute(xt[:, -span_lo:], ROW_AXIS, fwd)
-            hh_t = jax.lax.ppermute(xt[:, :span_hi], ROW_AXIS, bwd)
-            hl = jnp.pad(hl_t, ((0, 0), (pad_l - span_lo, 0)))
-            hh = jnp.pad(hh_t, ((0, 0), (0, tail - span_hi)))
-            return dia_spmm_t_halo(dia_loc, xt, hl, hh).T
         halo_lo = jax.lax.ppermute(
             x_loc[-span_lo:, :], ROW_AXIS, fwd) if span_lo else None
         halo_hi = jax.lax.ppermute(
             x_loc[:span_hi, :], ROW_AXIS, bwd) if span_hi else None
         # interior contribution: no dependence on the permutes -> overlaps.
-        # Per-chip it is exactly a local DIA SpMM with zero-extended
-        # edges, so it rides the Pallas kernel on TPU (dia_spmm dispatch).
-        y = dia_spmm(dia_loc, x_loc)
+        # Per device it is exactly a local DIA SpMM with zero-extended
+        # edges.
+        y = dia_loc.matmat(x_loc)
         # boundary corrections once the halos arrive
         for k, off in enumerate(offsets):
             if off < 0 and halo_lo is not None:

@@ -3,7 +3,7 @@
 The reference's only parallel strategy is 1-D row partitioning of all
 m-sized objects over MPI ranks, with every k-sized object replicated
 (SURVEY.md section 2.7; Epetra_Map distribution at
-/root/reference/src/main.cpp:66-74).  The TPU-native equivalent is a 1-D
+/root/reference/src/main.cpp:66-74).  The equivalent here is a 1-D
 ``rows`` mesh axis: V/AV/MV and the sparse payloads of A/M are sharded
 along rows, the small projected matrices are replicated, and XLA's SPMD
 partitioner inserts the collectives the reference got from Epetra:

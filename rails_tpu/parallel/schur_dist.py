@@ -1,11 +1,11 @@
 """Distributed Schur-complement operator - the reference's production
-posture on a TPU mesh.
+posture on a device mesh.
 
 The reference's production driver is an MPI program whose solve runs on
 the *SchurOperator*: every A12/A21/A22 application is a distributed
 Epetra SpMM (/root/reference/src/SchurOperator.cpp:201-233), with only
 the KLU factorization of A11 serial (:177-186).  This module is the
-TPU-native equivalent of that posture over the 1-D ``rows`` mesh:
+equivalent of that posture over the 1-D ``rows`` mesh:
 
 - **A22** (n2 x n2, the dynamic block) is placed through
   ``shard_operator`` - the halo-ELL/DIA fast path when the slab geometry
@@ -25,7 +25,7 @@ TPU-native equivalent of that posture over the 1-D ``rows`` mesh:
 - **A11^{-1}** is a dense LU factored once host-side and *replicated* on
   every device - the same "redundant replicated compute" pattern as the
   k x k projected matrices (SURVEY.md section 5 names the replicated
-  small dense solve as the TPU-idiomatic stand-in for the reference's
+  small dense solve as the accelerator-idiomatic stand-in for the reference's
   gather-to-serial KLU, SchurOperator.cpp:177-186).  Replication removes
   the reference's serial bottleneck from the critical path: every device
   advances the factorization locally with zero communication.

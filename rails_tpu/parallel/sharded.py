@@ -52,7 +52,7 @@ def _shard_payload(payload, mesh):
 
 def _try_halo_hyb(op, mesh):
     """HYB fast path: explicit-halo DIA for the dense diagonals +
-    windowed-ELL halo for the remainder, summed (halo_ell.py).  Returns
+    ELL halo for the remainder, summed (halo_ell.py).  Returns
     None unless every part - both directions - satisfies its slab
     geometry; the transpose may be stored as a HYB split or a single
     ELL (formats.sparse_from_scipy builds either)."""
@@ -99,12 +99,11 @@ def shard_operator(op: LinearOperator, mesh: Mesh,
 
     ``spmm`` picks the distributed SpMM strategy for sparse payloads:
     'halo' routes applies through the explicit-halo shard_map operators
-    (ppermute neighbor exchange + per-chip Pallas kernel - the
-    reference's Epetra Apply pattern,
-    /root/reference/src/Epetra_OperatorWrapper.cpp:75-91; DIA via
-    halo_spmm.py, ELL/HYB via halo_ell.py), 'gspmd' leaves
-    communication to the partitioner (Pallas disabled), 'auto' uses
-    halo whenever the slab geometry allows.
+    (ppermute neighbor exchange + per-device apply - the reference's
+    Epetra Apply pattern, /root/reference/src/Epetra_OperatorWrapper.cpp
+    :75-91; DIA via halo_spmm.py, ELL/HYB via halo_ell.py), 'gspmd'
+    leaves communication to the partitioner, 'auto' uses halo whenever
+    the slab geometry allows.
     """
     if spmm not in ("auto", "halo", "gspmd"):
         raise ValueError(f"unknown spmm strategy {spmm!r}")
@@ -139,9 +138,8 @@ def shard_operator(op: LinearOperator, mesh: Mesh,
                     "divisible by the mesh and stencil span within one "
                     "per-device slab")
         if spmm != "gspmd" and isinstance(op.fwd, EllMatrix):
-            # distributed windowed-ELL fast path (round-2 gap: ELL fell
-            # to GSPMD with Pallas disabled); requires both directions
-            # to qualify so rmatmat stays on the fast path too
+            # distributed ELL halo path; requires both directions to
+            # qualify so rmatmat stays on it too
             from rails_tpu.parallel.halo_ell import (
                 HaloEllOperator, build_halo_ell)
             fwd = build_halo_ell(op.fwd, mesh)
@@ -156,9 +154,9 @@ def shard_operator(op: LinearOperator, mesh: Mesh,
                         nnz=op.nnz)
             if spmm == "halo":
                 raise ValueError(
-                    "spmm='halo' requires a square ELL payload with "
-                    "128-multiple per-device slabs and remote references "
-                    "within the adjacent slabs (both directions)")
+                    "spmm='halo' requires a square ELL payload with rows "
+                    "divisible by the mesh and remote references within "
+                    "the adjacent slabs (both directions)")
         if spmm != "gspmd" and isinstance(op.fwd, HybMatrix):
             halo = _try_halo_hyb(op, mesh)
             if halo is not None:
@@ -172,7 +170,7 @@ def shard_operator(op: LinearOperator, mesh: Mesh,
         return SparseOperator(
             _shard_payload(op.fwd, mesh), bwd,
             is_symmetric=op.is_symmetric, is_spd=op.is_spd,
-            is_hurwitz=op.is_hurwitz, nnz=op.nnz, use_pallas=False)
+            is_hurwitz=op.is_hurwitz, nnz=op.nnz)
     if isinstance(op, (CallableOperator, IdentityOperator)):
         return op
     raise TypeError(f"cannot shard operator of type {type(op)}")

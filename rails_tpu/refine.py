@@ -1,14 +1,15 @@
 """Residual-corrected (iteratively refined) low-rank Lyapunov solves.
 
-float32 is the TPU-native working precision, but a single f32 RAILS solve
-floors at a relative residual of ~1e-6: the stored V/T factors only carry
+A float32 solve moves half the bytes of a float64 one, but a single f32
+RAILS solve floors at a relative residual of ~1e-6: the stored V/T factors only carry
 ~7 significant digits, so no amount of careful arithmetic inside one
 solve can push the *represented* solution past that (measured: an f64
 solve reaches 7e-9 at k=24 on a problem where f32 stalls at 8e-7 with
 k=237, standard or compensated).  The reference never faces this - it
 leans on f64 BLAS throughout (/root/reference/src/BlasWrapper.hpp:21-40).
 
-The TPU-native fix is defect correction at the *equation* level:
+The fix that keeps f32 storage is defect correction at the *equation*
+level (on the GPU a plain float64 solve is the other route):
 
 1. solve  A X0 M' + M X0 A' + B B' = 0  to a loose tol (~1e-5);
 2. the residual of the stored factors is exactly representable as a
@@ -59,7 +60,7 @@ class RefineInfo:
 
 
 def cholqr2(u: jax.Array, eps_rel: float = 0.0):
-    """CholeskyQR2 orthonormalization of a tall-skinny block (MXU-shaped:
+    """CholeskyQR2 orthonormalization of a tall-skinny block (GEMM-shaped:
     two Gram GEMMs + two tiny Cholesky factorizations).  Returns (q, r)
     with u = q r; rank deficiency is regularized by a relative shift."""
     def _one(w):

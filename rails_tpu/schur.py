@@ -9,14 +9,14 @@ RAILSschur, /root/reference/matlab/RAILSschur.m):
     split by |diag(M)| < tol into parts 1 (singular) and 2 (dynamic);
     S x = A22 x - A21 A11^{-1} A12 x ;  MS = M22 ;  BS = B2 (restricted)
 
-and RAILSsolver runs on (S, MS, BS).  The TPU-native design:
+and RAILSsolver runs on (S, MS, BS).  The design here:
 
 - the index split, submatrix extraction, and border augmentation happen
   host-side (scipy), once;
 - A12/A21/A22 become device sparse operators (ELL), and the A11 solve -
   the reference's serial KLU bottleneck - is *pluggable*
   (``a11_solver``): 'dense_lu' (default) factors A11 densely on device
-  once (jittable lu_solve applies on the MXU; the right call for the
+  once (jittable lu_solve applies as dense GEMMs; the right call for the
   moderate A11 sizes of the reference's problem class), 'native_lu' uses
   our C++ Gilbert-Peierls LU through a host callback (the KLU-equivalent
   for very sparse/large A11), 'iterative' runs Jacobi-preconditioned
@@ -273,7 +273,7 @@ class SchurReduction:
         """x -> S^{-1} x via a full-A solve with the reorder trick
         (RAILSschur.m:57-64): solve A z = P' [0; x], return z[idx2].
 
-        ``method='dense_lu'`` factors A densely on device (cached; MXU
+        ``method='dense_lu'`` factors A densely on device (cached; GEMM
         applies).  ``method='native_lu'`` uses the C++ Gilbert-Peierls
         sparse LU via a host callback - the scalable choice when A is
         large and sparse (the role of MATLAB's sparse ``lu`` at

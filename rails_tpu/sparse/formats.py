@@ -1,21 +1,23 @@
-"""Device sparse-matrix formats, TPU-first.
+"""Device sparse-matrix formats.
 
 The reference's distributed sparse matrix is row-partitioned CSR
-(Epetra_CrsMatrix).  CSR's per-row indirection is the wrong shape for a
-vector machine, so the device formats here are chosen for the VPU/MXU:
+(Epetra_CrsMatrix).  The device formats here trade CSR's per-row
+indirection for dense, regular payloads that XLA fuses into a single
+pass over the operand:
 
 - **DIA (diagonal)**: offsets + dense diagonal data.  The PDE/ocean
   matrices the reference targets (2D Laplacian stencils, structured-grid
   Jacobians like DataErik) have a handful of distinct diagonals; SpMM
-  becomes a short unrolled sum of shifted fused multiply-adds - no
-  gathers, HBM-bandwidth-bound, trivially row-shardable (the shift halo
-  becomes a neighbor exchange).
+  is a sum of shifted elementwise products over a once-padded operand -
+  no gathers, memory-bandwidth-bound, trivially row-shardable (the shift
+  halo becomes a neighbor exchange).
 - **ELL (padded row-wise)**: column indices + values padded to the max
-  row degree.  SpMM is one gather of V rows + a weighted reduction.
-  Handles general sparsity (sprand tests, irregular meshes).
+  row degree.  SpMM is one gather of V rows + a fused multiply-add per
+  slot.  Handles general sparsity (sprand tests, irregular meshes).
+- **HYB**: DIA for the densely-occupied diagonals plus an ELL remainder.
 
 ``sparse_from_*`` picks DIA automatically when the distinct-offset count
-is small (the structured case), else ELL.  Host-side analysis uses
+is small (the structured case), else HYB or ELL.  Host-side analysis uses
 scipy.sparse; device payloads are plain jnp arrays registered as pytree
 leaves so operators pass through jit/sharding like any array.
 """
@@ -54,22 +56,23 @@ class DiaMatrix:
     shape: Tuple[int, int]           # static
 
     def matmat(self, x: jax.Array) -> jax.Array:
+        # one fused expression over a once-padded operand: the zero
+        # padding stands in for the out-of-range columns, so every
+        # diagonal is a full-length shifted slice and XLA emits a single
+        # pass that reads x (neighbouring diagonals hit in cache) and
+        # writes y once
         m, n = self.shape
-        y = jnp.zeros((m,) + x.shape[1:], dtype=x.dtype)
+        lo = max(0, -min(self.offsets))
+        hi = max(0, m + max(self.offsets) - n)
+        xpad = jnp.pad(x, ((lo, hi),) + ((0, 0),) * (x.ndim - 1))
+        vshape = (m,) + (1,) * (x.ndim - 1)
+        y = None
         for idx, off in enumerate(self.offsets):
-            diag = self.data[idx]
-            if off >= 0:
-                lo, hi = 0, min(m, n - off)
-                if hi <= lo:
-                    continue
-                contrib = diag[lo:hi, None] * x[lo + off:hi + off]
-                y = y.at[lo:hi].add(contrib)
-            else:
-                lo, hi = -off, min(m, n - off)
-                if hi <= lo:
-                    continue
-                contrib = diag[lo:hi, None] * x[lo + off:hi + off]
-                y = y.at[lo:hi].add(contrib)
+            term = self.data[idx].reshape(vshape).astype(x.dtype) * \
+                jax.lax.slice_in_dim(xpad, lo + off, lo + off + m, axis=0)
+            y = term if y is None else y + term
+        if y is None:
+            return jnp.zeros((m,) + x.shape[1:], dtype=x.dtype)
         return y
 
     def matmat2(self, x: jax.Array):
@@ -124,18 +127,12 @@ class DiaMatrix:
 class EllMatrix:
     """Padded row-wise format: y[i] = sum_l values[i, l] * x[indices[i, l]];
     padding slots have values == 0 and *row-local* indices (the row's own
-    first column) so the windowed kernel's per-chunk column spans stay
-    tight.  ``well`` is the optional kernel-native windowed payload
-    (sparse/ell_spmm.py), built at construction when the matrix
-    qualifies; None otherwise (then applies take the XLA path)."""
+    first column), so a row slab's column span - the halo a distributed
+    apply exchanges (parallel/halo_ell.py) - stays tight."""
 
     indices: jax.Array               # (m, L) int32
     values: jax.Array                # (m, L)
     shape: Tuple[int, int]           # static
-    well: Optional[object] = None    # WindowedEll or None
-    wide: Optional[object] = None    # WideWindow (dense-window MXU
-    # payload for wide multivectors, sparse/wide_spmm.py) or None;
-    # built on request (sparse_from_scipy(..., wide_s=True))
 
     def matmat(self, x: jax.Array) -> jax.Array:
         # one (m, s) gather + fused multiply-add per slot: peak memory
@@ -167,26 +164,23 @@ class EllMatrix:
     def astype(self, dtype) -> "EllMatrix":
         if self.values.dtype == jnp.dtype(dtype):
             return self
-        well = None if self.well is None else self.well.astype(dtype)
         return EllMatrix(self.indices, self.values.astype(dtype),
-                         self.shape, well, self.wide)
+                         self.shape)
 
     def tree_flatten(self):
-        return (self.indices, self.values, self.well, self.wide), (
-            self.shape,)
+        return (self.indices, self.values), (self.shape,)
 
     @classmethod
     def tree_unflatten(cls, aux, children):
-        return cls(children[0], children[1], aux[0], children[2],
-                   children[3])
+        return cls(children[0], children[1], aux[0])
 
 
 @jax.tree_util.register_pytree_node_class
 @dataclasses.dataclass
 class HybMatrix:
-    """Hybrid DIA + ELL split (the classic HYB format, TPU-flavored):
-    the densely-occupied diagonals ride the DIA path (and its Pallas
-    kernel), the stray off-stencil entries go to a skinny ELL remainder.
+    """Hybrid DIA + ELL split (the classic HYB format): the
+    densely-occupied diagonals ride the DIA path, the stray off-stencil
+    entries go to a skinny ELL remainder.
     Extends the structured fast path to matrices that are banded *except*
     for a few irregular couplings (periodic wrap-around, boundary
     conditions, observation rows)."""
@@ -227,17 +221,13 @@ class SparseOperator(LinearOperator):
     rmatmat (built host-side at construction)."""
 
     def __init__(self, fwd, bwd, *, is_symmetric=False, is_spd=False,
-                 is_hurwitz=False, nnz: int = 0, use_pallas: bool = True):
+                 is_hurwitz=False, nnz: int = 0):
         self.fwd = fwd
         self.bwd = bwd
         self.is_symmetric = is_symmetric
         self.is_spd = is_spd
         self.is_hurwitz = is_hurwitz
         self.nnz = nnz
-        # GSPMD-sharded payloads must NOT enter the Pallas kernel (an
-        # unpartitionable pallas_call would be replicated by the
-        # partitioner); shard_operator clears this flag.
-        self.use_pallas = use_pallas
 
     @property
     def shape(self):
@@ -256,31 +246,15 @@ class SparseOperator(LinearOperator):
             p = p.dia
         return p.data.dtype if isinstance(p, DiaMatrix) else p.values.dtype
 
-    def _apply(self, payload, x):
-        if self.use_pallas and isinstance(payload, DiaMatrix):
-            from rails_tpu.sparse.spmm import dia_spmm
-
-            return dia_spmm(payload, x)
-        if self.use_pallas and isinstance(payload, HybMatrix):
-            from rails_tpu.sparse.ell_spmm import ell_spmm
-            from rails_tpu.sparse.spmm import dia_spmm
-
-            return dia_spmm(payload.dia, x) + ell_spmm(payload.ell, x)
-        if self.use_pallas and isinstance(payload, EllMatrix):
-            from rails_tpu.sparse.ell_spmm import ell_spmm
-
-            return ell_spmm(payload, x)
-        return payload.matmat(x)
-
     def matmat(self, x):
-        return self._apply(self.fwd, x)
+        return self.fwd.matmat(x)
 
     def matmat2(self, x):
         """Error-free apply (hi, lo) for the refined driver."""
         return self.fwd.matmat2(x)
 
     def rmatmat(self, x):
-        return self._apply(self.fwd if self.bwd is None else self.bwd, x)
+        return (self.fwd if self.bwd is None else self.bwd).matmat(x)
 
     def to_dense(self):
         return self.fwd.matmat(jnp.eye(self.shape[1]))
@@ -292,19 +266,17 @@ class SparseOperator(LinearOperator):
             return self
         return SparseOperator(fwd, bwd, is_symmetric=self.is_symmetric,
                               is_spd=self.is_spd, is_hurwitz=self.is_hurwitz,
-                              nnz=self.nnz, use_pallas=self.use_pallas)
+                              nnz=self.nnz)
 
     def tree_flatten(self):
         return (self.fwd, self.bwd), (self.is_symmetric, self.is_spd,
-                                      self.is_hurwitz, self.nnz,
-                                      self.use_pallas)
+                                      self.is_hurwitz, self.nnz)
 
     @classmethod
     def tree_unflatten(cls, aux, children):
         obj = cls.__new__(cls)
         obj.fwd, obj.bwd = children
-        (obj.is_symmetric, obj.is_spd, obj.is_hurwitz, obj.nnz,
-         obj.use_pallas) = aux
+        obj.is_symmetric, obj.is_spd, obj.is_hurwitz, obj.nnz = aux
         return obj
 
 
@@ -349,11 +321,12 @@ def _dia_from_scipy(a: sp.spmatrix, dtype) -> DiaMatrix:
     # entry (j - offset, j).  Our convention: data[k, i] multiplies
     # x[i + offset] into y[i], i.e. entry (i, i + offset) -> data[k, i] =
     # scipy_data[k, i + offset].
-    data = np.zeros((len(offsets), m), dtype=dtype)
+    data = np.zeros((len(offsets), m), dtype=jnp.dtype(dtype).name)
     sd = adia.data
     for k, off in enumerate(offsets):
-        for i in range(max(0, -off), min(m, n - off)):
-            data[k, i] = sd[k, i + off]
+        lo, hi = max(0, -off), min(m, n - off, sd.shape[1] - off)
+        if hi > lo:
+            data[k, lo:hi] = sd[k, lo + off:hi + off]
     return DiaMatrix(jnp.asarray(data), offsets, (m, n))
 
 
@@ -362,8 +335,8 @@ def ell_arrays_from_scipy(a: sp.spmatrix, dtype,
     """Raw padded row-ELL (indices, values) of a scipy matrix - the
     shared CSR-to-ELL scatter core (also used by the distributed Schur
     payload builder, parallel/schur_dist.py).  ``pad_row_local`` fills
-    padding slots with the row's own first column index (keeps the
-    windowed kernel's per-chunk spans tight); False pads with index 0
+    padding slots with the row's own first column index (keeps a row
+    slab's column span, hence its halo, tight); False pads with index 0
     (value 0 either way, harmless to gather and scatter applies)."""
     csr = a.tocsr()
     m, n = csr.shape
@@ -390,20 +363,9 @@ def ell_arrays_from_scipy(a: sp.spmatrix, dtype,
     return indices, values
 
 
-def _ell_from_scipy(a: sp.spmatrix, dtype, wide_s: bool = False,
-                    wide_passes: int = 3) -> EllMatrix:
-    from rails_tpu.sparse.ell_spmm import ell_windowize
-
-    m, n = a.shape
+def _ell_from_scipy(a: sp.spmatrix, dtype) -> EllMatrix:
     indices, values = ell_arrays_from_scipy(a, dtype)
-    well = ell_windowize(indices, values, (m, n))
-    wide = None
-    if wide_s and well is not None:
-        from rails_tpu.sparse.wide_spmm import build_wide_window
-
-        wide = build_wide_window(well, passes=wide_passes)
-    return EllMatrix(jnp.asarray(indices), jnp.asarray(values), (m, n),
-                     well, wide)
+    return EllMatrix(jnp.asarray(indices), jnp.asarray(values), a.shape)
 
 
 def _hyb_split(a: sp.csr_matrix, dia_fill_limit: float,
@@ -460,8 +422,7 @@ def _hyb_from_scipy(a: sp.csr_matrix, dtype, dia_fill_limit: float,
 
 def sparse_from_scipy(a: sp.spmatrix, *, fmt: str = "auto",
                       dia_max_offsets: int = 96, dia_fill_limit: float = 8.0,
-                      dtype=None, wide_s: bool = False,
-                      wide_passes: int = 3, **tags) -> SparseOperator:
+                      dtype=None, **tags) -> SparseOperator:
     """Build a device SparseOperator from a scipy sparse matrix.
 
     fmt: 'auto' | 'dia' | 'hyb' | 'ell'.  'auto' picks DIA when the
@@ -472,11 +433,6 @@ def sparse_from_scipy(a: sp.spmatrix, *, fmt: str = "auto",
     path.  When full DIA doesn't qualify but a subset of diagonals
     covers most of the nnz, 'auto' falls back to HYB (dense diagonals +
     ELL remainder); otherwise ELL.
-
-    ``wide_s``: also build the dense-window MXU payload for wide
-    multivector applies (sparse/wide_spmm.py; costs w/L values per nnz
-    of device memory, so opt-in); ``wide_passes`` picks its precision
-    (3 ~ 1.5e-5 relative, 6 ~ f32).
     """
     if dtype is None:
         dtype = jnp.asarray(0.0).dtype
@@ -506,20 +462,10 @@ def sparse_from_scipy(a: sp.spmatrix, *, fmt: str = "auto",
             bwd = _hyb_from_scipy(
                 a.T.tocsr(), dtype, dia_fill_limit, dia_max_offsets)
             if bwd is None:  # transpose split can fail independently
-                bwd = _ell_from_scipy(a.T.tocsr(), dtype, wide_s,
-                                      wide_passes)
-    if wide_s and fmt != "ell":
-        import warnings
-
-        warnings.warn(
-            f"wide_s=True only applies to the ELL format; this matrix "
-            f"resolved to fmt={fmt!r} and no dense-window payload was "
-            f"built (the DIA/HYB kernels are already width-robust) - "
-            f"pass fmt='ell' to force it", stacklevel=2)
+                bwd = _ell_from_scipy(a.T.tocsr(), dtype)
     if fmt == "ell":
-        fwd = _ell_from_scipy(a, dtype, wide_s, wide_passes)
-        bwd = None if sym else _ell_from_scipy(a.T.tocsr(), dtype,
-                                               wide_s, wide_passes)
+        fwd = _ell_from_scipy(a, dtype)
+        bwd = None if sym else _ell_from_scipy(a.T.tocsr(), dtype)
     elif fmt not in ("dia", "hyb"):
         raise ValueError(f"unknown sparse format {fmt!r}")
     return SparseOperator(fwd, bwd, nnz=nnz, **tags)

@@ -1,41 +1,21 @@
 """Hub-splitting for power-law (scale-free) sparsity.
 
-The windowed-ELL kernel requires every 128-row chunk's column span to
-fit a bounded window - true for banded/structured matrices and general
-ones after RCM, false for scale-free graphs, whose hub rows/columns
-span the whole index space (ell_spmm.py module docstring).  The
-reference handles such matrices at CPU speed through Epetra's general
-CrsMatrix Apply (/root/reference/src/Epetra_OperatorWrapper.cpp:75-91);
-the raw XLA take path on TPU runs ~0.03 Gnnz/s.
-
-``hub_operator`` splits A by a degree threshold (VERDICT r04 item 5):
+Plain ELL pads every row to the maximum degree, so a handful of hub
+rows with degree ~m make the payload ~m x m.  ``hub_operator`` splits A
+by a degree threshold:
 
 - **hub rows** (degree > threshold, at most ``max_hubs``): stored DENSE
-  as D = A[H, :] (h, m) - their apply is one (h, m) @ (m, s) GEMM, an
-  MXU-shaped operation that streams D at full HBM rate regardless of
-  how scattered the row's columns are.  Scattered back by one small
-  ``y[H] +=`` update.
+  as D = A[H, :] (h, m) - their apply is one (h, m) @ (m, s) GEMM,
+  scattered back by one small ``y[H] +=`` update.
 - **hub columns** (same set, for the non-hub rows): remapped onto the
-  compacted index space [0, h) and stored as an (m, h) ELL - with h
-  <= the window cap the ENTIRE compacted operand x[H] is one VMEM
-  window, so the existing windowed-ELL kernel applies with w =
-  roundup(h, 128) and no window analysis can fail.
-- **remainder** (non-hub rows x non-hub cols): the low-degree bulk;
-  windowized as usual (callers RCM-reorder first when the bulk has
-  recoverable structure - rails_tpu.sparse.reorder).
+  compacted index space [0, h) and stored as an (m, h) ELL over x[H].
+- **remainder** (non-hub rows x non-hub cols): the low-degree bulk, a
+  plain ELL (callers RCM-reorder first when the bulk has recoverable
+  structure - rails_tpu.sparse.reorder).
 
-WHEN THE SPLIT PAYS - and when it cannot (the honest boundary, from
-the probe math recorded in benchmarks/probes/probe_hub_ba.py): for a
-pure Barabasi-Albert graph the fraction of edge-ends incident to any
-w-bounded hub set is ~sqrt(w/m) (~4-6% at m = 2^20, w = 2048), and the
-low-degree remainder is an expander whose chunk windows still span ~m
-- NO split with VMEM-bounded windows can cover it, and the remainder
-stays on the take path.  The split pays on the realistic class it is
-built for: matrices with local structure PLUS superhubs (geographic
-networks with shortcuts, meshes with global constraint rows/columns,
-observation/coupling rows), where removing O(max_hubs) hubs leaves a
-windowizable bulk.  There the measured win over the take path is the
-windowed kernel's own ~100x at the bulk plus MXU speed on the hubs.
+``hub_coverage`` reports the fraction of nnz the hub set covers; for a
+pure Barabasi-Albert graph it is ~sqrt(h/m), and the split leaves most
+of the matrix in the remainder.
 """
 
 from __future__ import annotations
@@ -57,8 +37,7 @@ _DENSE_BYTES_CAP = 1 << 30    # refuse silently huge dense hub blocks
 
 def hub_coverage(a: sp.spmatrix, n_hubs: int) -> float:
     """Fraction of nnz incident to the ``n_hubs`` highest-degree
-    rows/columns - the probe-level feasibility number (for pure
-    Barabasi-Albert this is ~sqrt(w/m): the split cannot pay)."""
+    rows/columns (for pure Barabasi-Albert this is ~sqrt(n_hubs/m))."""
     a = a.tocsr()
     deg = np.asarray(np.diff(a.indptr)) + np.asarray(
         np.diff(a.tocsc().indptr))
@@ -103,16 +82,13 @@ class HubSplitOperator(LinearOperator):
         return self.rest.values.dtype
 
     def _apply(self, rest, hubcol, hub_idx, d, x):
-        from rails_tpu.sparse.ell_spmm import ell_spmm
-
-        y = ell_spmm(rest, x)
+        y = rest.matmat(x)
         if hubcol is not None:
-            y = y + ell_spmm(hubcol, x[hub_idx])
+            y = y + hubcol.matmat(x[hub_idx])
         if d is not None:
-            # HIGHEST: the TPU default would run this GEMM at bf16
-            # (measured 2e-3 relative error on the hub rows - round-5
-            # live-chip finding); the apply is D-streaming-bound, so
-            # the extra passes are free
+            # HIGHEST: a float32 GEMM may otherwise run at reduced
+            # precision (TF32 on the GPU); the apply streams D, so the
+            # full-precision product costs nothing measurable
             y = y.at[hub_idx].add(jax.lax.dot(
                 d, x, precision=jax.lax.Precision.HIGHEST))
         return y
@@ -204,12 +180,10 @@ def hub_operator(a: sp.spmatrix, *, max_hubs: int = 256,
     (highest-degree first).  A factor of the median separates genuine
     superhubs from the bulk regardless of how many there are - a
     quantile rule can cut mid-cluster and leave hub rows in the
-    remainder, where a single one destroys every chunk window it
-    touches.  Callers with structured bulk should RCM-reorder the
-    system first so the remainder windowizes
-    (rails_tpu.sparse.reorder); ``op.rest.well is None`` afterwards
-    means the remainder stayed on the take path and the split will not
-    pay - check ``hub_coverage`` for the feasibility number.
+    remainder, where a single one pads the whole ELL remainder to its
+    degree.  Callers with structured bulk should RCM-reorder the system
+    first (rails_tpu.sparse.reorder); ``hub_coverage`` gives the
+    fraction of nnz the split takes out of the remainder.
     """
     if dtype is None:
         dtype = jnp.asarray(0.0).dtype

@@ -1,6 +1,6 @@
-"""Bandwidth-reduction reordering (TPU-native enhancement).
+"""Bandwidth-reduction reordering.
 
-The Pallas DIA kernel is the fast path for banded/stencil sparsity; a
+The DIA format is the fast path for banded/stencil sparsity; a
 general sparse matrix becomes DIA-friendly after a symmetric permutation
 that clusters the nonzeros around the main diagonal.  Reverse Cuthill-McKee
 on the symmetrized pattern is the classic choice; a Lyapunov problem is
@@ -9,8 +9,9 @@ map the low-rank factor back with V = P' V_perm), so reordering is purely
 a performance transform.
 
 The reference has no analogue - Epetra's CSR SpMV is
-ordering-insensitive on CPUs, but on TPU the diagonal structure decides
-whether the SpMM runs on lane-offset slices (fast) or gathers (slow).
+ordering-insensitive on CPUs, but here the diagonal structure decides
+whether the SpMM runs on shifted slices (DIA) or gathers (ELL), and how
+wide a row slab's halo is on a mesh.
 """
 
 from __future__ import annotations

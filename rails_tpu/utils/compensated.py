@@ -1,13 +1,14 @@
-"""Compensated float32 reductions for TPU (error-free transforms).
+"""Compensated float32 reductions (error-free transforms).
 
 The reference runs float64 BLAS throughout
-(/root/reference/src/BlasWrapper.hpp:21-40).  TPU has no native float64,
-and the solver's accuracy floor at float32 is set by rounding noise in
-the long m-length reductions: the Gram blocks V'AV (solver
+(/root/reference/src/BlasWrapper.hpp:21-40).  A float32 solve (half the
+bytes of every m-sized pass) has its accuracy floor set by rounding
+noise in the long m-length reductions: the Gram blocks V'AV (solver
 ``gram_update``), the Lanczos 3-term recurrence scalars, and the
 orthogonalization inner products.  A plain f32 contraction of length m
-carries ~sqrt(m)*eps relative rounding noise (~6e-5 at m=1e6), which is
-exactly the ~1e-4 residual floor observed on hardware.
+carries ~sqrt(m)*eps relative rounding noise (~6e-5 at m=1e6).  On the
+GPU float64 is native (at half the f32 rate), so this module serves the
+float32 path of ``precision="compensated"`` and ``rails_tpu.refine``.
 
 This module restores (near-)float64-quality results from f32 storage
 using classic error-free transforms (Ogita, Rump & Oishi, "Accurate sum
@@ -17,19 +18,20 @@ and dot product", SIAM J. Sci. Comput. 26(6), 2005):
 - ``two_prod(a, b)``     -> (p, e) with a*b = p+e exactly (Dekker split;
   no FMA primitive is exposed by XLA, so the split form is used).
 - ``dot2(x, y)``         -> compensated dot along axis 0: full working-
-  precision accuracy (error ~ eps + cond * eps^2) at ~4x the VPU
-  flops of a plain dot - still HBM-bandwidth-bound for the skinny
-  operands it is meant for, so roughly *free* on TPU.
-- ``gram2(x, w, chunk)`` -> x' @ w via chunked MXU partial products with
-  a compensated cross-chunk pairwise reduction.  The MXU accumulates
-  each chunk in plain f32 (hardware; cannot be compensated), so the
-  error drops from ~sqrt(m)*eps to ~sqrt(chunk)*eps - a sqrt(m/chunk)
-  improvement (~30x at m=1e6, chunk=1024) while keeping every FLOP on
-  the MXU.
+  precision accuracy (error ~ eps + cond * eps^2) at ~4x the elementwise
+  flops of a plain dot - still memory-bound for the skinny operands it
+  is meant for.
+- ``gram2(x, w, chunk)`` -> x' @ w via chunked GEMM partial products with
+  a compensated cross-chunk pairwise reduction.  Each chunk accumulates
+  in plain f32 inside the GEMM (cannot be compensated), so the error
+  drops from ~sqrt(m)*eps to ~sqrt(chunk)*eps - a sqrt(m/chunk)
+  improvement (~30x at m=1e6, chunk=1024) while every FLOP stays in a
+  GEMM.  The chunk GEMMs run at "highest" precision: a TF32 product
+  would undo the compensation.
 
-``dot2`` is exact-compensated but elementwise (VPU): use it when the
-output is small (vector-vector, or a handful of column pairs).
-``gram2`` rides the MXU: use it for the (m,a)'(m,b) Gram blocks.
+``dot2`` is exact-compensated but elementwise: use it when the output is
+small (vector-vector, or a handful of column pairs).  ``gram2`` rides
+GEMMs: use it for the (m,a)'(m,b) Gram blocks.
 
 Under GSPMD row sharding both compose with psum: the per-device partial
 (hi, lo) pairs are psum'd separately and re-joined with two_sum, which
@@ -172,9 +174,9 @@ def gram2_pair(x, w, chunk: int = 1024):
 
 @functools.partial(jax.jit, static_argnames=("chunk",))
 def gram2(x, w, chunk: int = 1024):
-    """x' @ w via chunked MXU matmuls + compensated cross-chunk reduction.
+    """x' @ w via chunked matmuls + compensated cross-chunk reduction.
 
-    x: (m, a), w: (m, b) -> (a, b).  Each chunk partial runs on the MXU
+    x: (m, a), w: (m, b) -> (a, b).  Each chunk partial runs as a GEMM
     at HIGHEST precision (f32 accumulate); the cross-chunk pairwise
     two_sum tree removes the long-reduction error growth, leaving only
     the per-chunk ~sqrt(chunk)*eps noise.  Memory overhead is the

@@ -1,8 +1,9 @@
 """Dtype policy helpers.
 
 The reference (Sbte/RAILS) is float64 throughout (BLAS/LAPACK D-routines,
-e.g. /root/reference/src/BlasWrapper.hpp:21-40).  On TPU, float64 is
-emulated and slow, so the framework is dtype-generic:
+e.g. /root/reference/src/BlasWrapper.hpp:21-40).  On the GPU float64 is
+native at half the float32 rate, and float32 moves half the bytes, so the
+framework is dtype-generic:
 
 - every public entry point takes a ``dtype`` (default: the JAX default real
   dtype, i.e. float64 when ``jax_enable_x64`` is set, float32 otherwise);
@@ -28,11 +29,12 @@ __all__ = [
 def highest_precision(fn):
     """Trace ``fn`` under full-precision matmuls.
 
-    On TPU, float32 matmuls default to bfloat16 MXU passes, which is fine
-    for NN training but catastrophic for iterative linear algebra (a 2x2
-    Lyapunov solve loses 3 digits).  The small k-by-k projected kernels are
-    latency- not throughput-bound, so full precision is free; the large
-    m-sized streaming ops choose their precision explicitly instead.
+    On the GPU a float32 matmul at default precision may run in TF32
+    (~10 mantissa bits), which is fine for NN training but catastrophic
+    for iterative linear algebra (a 2x2 Lyapunov solve loses 3 digits).
+    The small k-by-k projected kernels are latency- not throughput-bound,
+    so full precision is free; the large m-sized streaming ops choose
+    their precision explicitly instead.
     """
     import functools
 

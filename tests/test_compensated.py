@@ -1,7 +1,7 @@
 """Compensated f32 reductions (utils/compensated.py) + solver wiring.
 
 The reference attains its tolerances through float64 BLAS
-(/root/reference/src/BlasWrapper.hpp:21-40); on TPU (no native f64) the
+(/root/reference/src/BlasWrapper.hpp:21-40); in a float32 solve the
 ``precision='compensated'`` option recovers the accuracy from f32
 storage via error-free transforms.  These tests pin the accuracy gain
 at the kernel level against a float64 oracle and check the solver-level

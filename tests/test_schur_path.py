@@ -308,7 +308,7 @@ class TestEigsGeneral:
 def test_moc_hurwitz_sign_path(rng):
     """The MOC Schur pencil is stable (verified: max Re(lambda) ~ -0.0054),
     so the hurwitz tag routes the projected solves through the Newton sign
-    iteration - the MXU-fast TPU path for this nonsymmetric problem."""
+    iteration - the fast path for this nonsymmetric problem."""
     a, m, b = rio.load_moc_problem()
     a2, m2, b2 = rio.add_border(a, m, b, rio.moc_border(a.shape[0]))
     red = schur_reduce(a2, m2, b2, hurwitz=True)

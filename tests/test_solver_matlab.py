@@ -52,7 +52,7 @@ class TestLaplace:
         # uses the default maxit=100 with its own rng(4634) draw; numpy's
         # rng(4634) yields a harder M draw at n=256: the checked-in
         # faithful numpy+ARPACK replica of RAILSsolver
-        # (benchmarks/replica/matlab_replica.py, evidence recorded in its
+        # (tests/matlab_replica.py, evidence recorded in its
         # docstring; consistency-tested at n=64 below) needs 147-148
         # iterations on it, so we run up to the asserted bound n-10.
         a, md, b = laplace_setup(rng, n)
@@ -287,16 +287,14 @@ class TestRandom:
 class TestMatlabReplica:
     def test_replica_consistency_n64(self, rng):
         """The checked-in numpy/scipy replica of MATLAB RAILSsolver
-        (benchmarks/replica/matlab_replica.py - the evidence behind the
+        (tests/matlab_replica.py - the evidence behind the
         realization-dependent maxit choices above) agrees with rails_tpu
         on the n=64 Laplace draw: both converge to < 1e-4 with the
         replica inside the MATLAB default iteration budget."""
         import os
         import sys
 
-        sys.path.insert(0, os.path.join(
-            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-            "benchmarks", "replica"))
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         from matlab_replica import matlab_rails_replica
 
         n = 64

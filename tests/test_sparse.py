@@ -137,7 +137,7 @@ class TestBackendContract:
 
     def test_astype_casts_payloads(self, problem):
         """Operators built at float64 (scipy default) must cast cleanly
-        to the solve dtype (TPU f32 solves of f64-built operators)."""
+        to the solve dtype (f32 solves of f64-built operators)."""
         a, x = problem
         x32 = jnp.asarray(x, jnp.float32)
         for name, op in make_backends(a).items():
@@ -156,7 +156,7 @@ class TestBackendContract:
 
     def test_solver_casts_f64_operator_to_f32(self, rng):
         """solve(dtype=f32) of an operator built at f64 must not carry
-        mixed-dtype contractions (the TPU deployment shape)."""
+        mixed-dtype contractions (the f32 deployment shape)."""
         import warnings as _warnings
 
         a = sp.diags([1.0, -2.0, 1.0], [-1, 0, 1], (64, 64)).tocsr()
@@ -189,448 +189,232 @@ class TestBackendContract:
             assert np.allclose(xs[0], xo, atol=1e-8)
 
 
-class TestDiaSpmmKernel:
-    def test_dispatch_matches_matmat(self, rng):
-        # on CPU the dispatcher uses the jnp path; check equivalence anyway
-        from rails_tpu.sparse.spmm import dia_spmm
-        from rails_tpu.sparse.formats import sparse_from_dense
-        a = laplacian2(256)
-        op = sparse_from_dense(a, fmt="dia")
-        x = jnp.asarray(rng.uniform(-1, 1, (256, 5)))
-        y = dia_spmm(op.fwd, x)
-        assert np.allclose(np.asarray(y), a @ np.asarray(x), atol=1e-12)
+def _banded_random(rng, m, ell_l, band, n=None):
+    """Random banded matrix: ``ell_l`` column picks per row within
+    +-band of the (scaled) diagonal."""
+    n = m if n is None else n
+    base = np.arange(m)
+    idx = base[:, None] * (n / m) + rng.integers(
+        -band, band + 1, size=(m, ell_l))
+    idx = np.clip(idx, 0, n - 1).astype(np.int64)
+    val = rng.uniform(-1, 1, size=(m, ell_l))
+    rows = np.repeat(base, ell_l)
+    return sp.coo_matrix((val.ravel(), (rows, idx.ravel())),
+                         shape=(m, n)).tocsr()
 
-    def test_pallas_interpreter(self, rng):
-        # run the pallas kernel in interpreter mode on CPU
-        import jax
-        from jax.experimental.pallas import tpu as pltpu
-        from rails_tpu.sparse.spmm import dia_spmm_pallas
-        from rails_tpu.sparse.formats import sparse_from_dense
-        a = laplacian2(1024)
-        op = sparse_from_dense(a, fmt="dia", dtype=jnp.float32)
-        x = jnp.asarray(rng.uniform(-1, 1, (1024, 8)), dtype=jnp.float32)
-        with pltpu.force_tpu_interpret_mode():
-            y = dia_spmm_pallas(op.fwd, x, block_rows=256)
-        assert np.allclose(np.asarray(y), np.asarray(op.fwd.matmat(x)),
-                           atol=1e-4)
 
-    @pytest.mark.parametrize("s", [1, 6, 13])
-    def test_pallas_sublane_padding(self, rng, s):
-        """Non-vreg-multiple multivector widths are padded to 8 sublanes
-        before the kernel: real Mosaic rejects sublane slices that are
-        not tile (8) multiples ("Slice shape along dimension 0 must be
-        aligned to tiling (8)"), which the interpreter does NOT enforce
-        - the round-4 n=65536 scale probe caught the solver's default
-        expand=6 failing on hardware while every CPU test passed."""
-        from jax.experimental.pallas import tpu as pltpu
+def _jittered_stencil(rng, m, offsets, jitter=4):
+    """Stencil with per-entry index jitter - the post-RCM mesh shape."""
+    base = np.arange(m)
+    idx = base[:, None] + np.asarray(offsets)[None, :] + rng.integers(
+        -jitter, jitter + 1, size=(m, len(offsets)))
+    idx = np.clip(idx, 0, m - 1)
+    val = rng.uniform(-1, 1, size=idx.shape)
+    rows = np.repeat(base, len(offsets))
+    return sp.coo_matrix((val.ravel(), (rows, idx.ravel())),
+                         shape=(m, m)).tocsr()
+
+
+def _dia_dense(data, offsets, shape):
+    """Dense oracle of a DIA payload: A[i, i + off_k] = data[k, i] for
+    the in-range entries (entries outside the matrix are ignored)."""
+    m, n = shape
+    a = np.zeros(shape)
+    for k, off in enumerate(offsets):
+        for i in range(max(0, -off), min(m, n - off)):
+            a[i, i + off] = data[k, i]
+    return a
+
+
+class TestDiaApply:
+    """The plain DIA apply (one fused expression over a padded operand)
+    against a dense oracle, across the shapes the solver produces."""
+
+    @pytest.mark.parametrize("m,n,offsets,s", [
+        (2048, 2048, (-33, -1, 0, 1, 33), 1),     # Lanczos vector width
+        (2048, 2048, (-33, -1, 0, 1, 33), 6),     # expand block
+        (2048, 2048, (-33, -1, 0, 1, 33), 13),    # odd width
+        (1100, 1100, (-40, -1, 0, 2, 33), 3),     # asymmetric stencil
+        (1024, 1024, (-130, -1, 0, 2, 130), 5),   # span > 128 rows
+        (500, 500, (0, 1, 7), 4),                 # upper-only offsets
+        (500, 500, (-9, -2), 4),                  # lower-only offsets
+        (600, 400, (-250, -3, 0, 5), 3),          # tall rectangular
+        (400, 600, (0, 3, 150), 3),               # wide rectangular
+    ])
+    def test_matches_dense(self, rng, m, n, offsets, s):
         from rails_tpu.sparse.formats import DiaMatrix
-        from rails_tpu.sparse.spmm import dia_spmm_t, dia_spmm_t_halo
-        m = 2048
-        offsets = (-33, -1, 0, 1, 33)
-        data = jnp.asarray(rng.uniform(-1, 1, (len(offsets), m)),
-                           dtype=jnp.float32)
-        dia = DiaMatrix(data, offsets, (m, m))
-        x = jnp.asarray(rng.uniform(-1, 1, (m, s)), dtype=jnp.float32)
-        with pltpu.force_tpu_interpret_mode():
-            y = dia_spmm_t(dia, x.T, block_rows=512).T
+
+        data = rng.uniform(-1, 1, (len(offsets), m))
+        x = rng.uniform(-1, 1, (n, s))
+        y = DiaMatrix(jnp.asarray(data), offsets, (m, n)).matmat(
+            jnp.asarray(x))
         assert y.shape == (m, s)
-        assert np.allclose(np.asarray(y), np.asarray(dia.matmat(x)),
-                           atol=1e-4)
-        # halo variant: same padding, explicit halo operands
-        hl = jnp.zeros((s, 128), jnp.float32)
-        hh = jnp.zeros((s, 128), jnp.float32)
-        with pltpu.force_tpu_interpret_mode():
-            yh = dia_spmm_t_halo(dia, x.T, hl, hh).T
-        assert yh.shape == (m, s)
-        assert np.allclose(np.asarray(yh), np.asarray(dia.matmat(x)),
-                           atol=1e-4)
+        np.testing.assert_allclose(np.asarray(y),
+                                   _dia_dense(data, offsets, (m, n)) @ x,
+                                   atol=1e-12)
 
-    @pytest.mark.parametrize("impl", ["v2", "v3"])
-    def test_pallas_interpreter_remainder_and_asymmetric(self, rng, impl):
-        # m % block_rows != 0 (remainder strip) + an asymmetric stencil
-        # (pad_l != tail) exercises the in-kernel first/last masking and
-        # the XLA remainder patch, on both kernel schedules
-        import jax.numpy as jnp
-        from jax.experimental.pallas import tpu as pltpu
+    def test_vector_operand(self, rng):
         from rails_tpu.sparse.formats import DiaMatrix
-        from rails_tpu.sparse.spmm import dia_spmm_t
-        m = 1100  # 4 blocks of 256 + remainder 76
-        offsets = (-40, -1, 0, 2, 33)
-        data = jnp.asarray(rng.uniform(-1, 1, (len(offsets), m)),
-                           dtype=jnp.float32)
-        dia = DiaMatrix(data, offsets, (m, m))
-        x = jnp.asarray(rng.uniform(-1, 1, (m, 3)), dtype=jnp.float32)
-        with pltpu.force_tpu_interpret_mode():
-            y = dia_spmm_t(dia, x.T, block_rows=256, impl=impl).T
-        assert np.allclose(np.asarray(y), np.asarray(dia.matmat(x)),
-                           atol=1e-4)
 
-    def test_halo_kernel_interpreter(self, rng):
-        """Halo-aware kernel: edge-block windows come from explicit halo
-        inputs (the distributed shard-local path, parallel/halo_spmm.py)
-        - equals the masked kernel plus manual halo contributions."""
-        from jax.experimental.pallas import tpu as pltpu
+        offsets = (-5, 0, 3)
+        data = rng.uniform(-1, 1, (3, 64))
+        x = rng.uniform(-1, 1, 64)
+        y = DiaMatrix(jnp.asarray(data), offsets, (64, 64)).matmat(
+            jnp.asarray(x))
+        assert y.shape == (64,)
+        np.testing.assert_allclose(np.asarray(y),
+                                   _dia_dense(data, offsets, (64, 64)) @ x,
+                                   atol=1e-12)
+
+    def test_out_of_range_data_is_ignored(self, rng):
+        """Data rows whose column falls outside the matrix multiply the
+        zero padding, exactly as if they were absent."""
         from rails_tpu.sparse.formats import DiaMatrix
-        from rails_tpu.sparse.spmm import dia_spmm_t_halo
-        m, s = 1024, 5
-        offsets = (-130, -1, 0, 2, 130)
-        pad_l = tail = 256  # round_up(130, 128)
-        data = np.asarray(rng.uniform(-1, 1, (len(offsets), m)),
-                          np.float32)
-        x = np.asarray(rng.uniform(-1, 1, (m, s)), np.float32)
-        hl = np.asarray(rng.uniform(-1, 1, (s, pad_l)), np.float32)
-        hh = np.asarray(rng.uniform(-1, 1, (s, tail)), np.float32)
-        # reference on the halo-extended vector
-        x_ext = np.concatenate([hl.T, x, hh.T], axis=0)
-        y_ref = np.zeros((m, s), np.float32)
-        for k, off in enumerate(offsets):
-            y_ref += data[k][:, None] * x_ext[pad_l + off:pad_l + off + m]
-        dia = DiaMatrix(jnp.asarray(data), offsets, (m, m))
-        with pltpu.force_tpu_interpret_mode():
-            y = dia_spmm_t_halo(dia, jnp.asarray(x.T), jnp.asarray(hl),
-                                jnp.asarray(hh)).T
-        assert np.allclose(np.asarray(y), y_ref, atol=1e-4)
+
+        offsets = (-7, 0, 7)
+        data = rng.uniform(-1, 1, (3, 100))
+        clean = data.copy()
+        clean[0, :7] = 0.0
+        clean[2, -7:] = 0.0
+        x = jnp.asarray(rng.uniform(-1, 1, (100, 2)))
+        y = DiaMatrix(jnp.asarray(data), offsets, (100, 100)).matmat(x)
+        y0 = DiaMatrix(jnp.asarray(clean), offsets, (100, 100)).matmat(x)
+        np.testing.assert_array_equal(np.asarray(y), np.asarray(y0))
+
+    def test_output_follows_operand_dtype(self, rng):
+        from rails_tpu.sparse.formats import DiaMatrix
+
+        data = jnp.asarray(rng.uniform(-1, 1, (3, 64)))  # float64
+        x = jnp.asarray(rng.uniform(-1, 1, (64, 2)), jnp.float32)
+        y = DiaMatrix(data, (-1, 0, 1), (64, 64)).matmat(x)
+        assert y.dtype == jnp.float32
+
+    def test_from_scipy_roundtrip(self, rng):
+        """sparse_from_scipy's vectorized DIA packing inverts exactly
+        through payload_to_scipy, both orientations."""
+        from rails_tpu.sparse.formats import payload_to_scipy
+
+        for shape in ((300, 200), (200, 300)):
+            a = sp.random(*shape, density=0.02, random_state=3,
+                          format="csr")
+            a = a + sp.eye(*shape, k=5) * 0.5
+            op = sparse_from_scipy(a.tocsr(), fmt="dia")
+            back = payload_to_scipy(op.fwd)
+            assert abs(back - a).max() < 1e-15
 
 
-class TestEllSpmmKernel:
-    """Windowed-ELL Pallas kernel (rails_tpu/sparse/ell_spmm.py) - the
-    unstructured-sparsity SpMM the reference gets from Epetra CrsMatrix
-    (/root/reference/src/Epetra_OperatorWrapper.cpp:75-91)."""
-
-    @staticmethod
-    def _banded_random(rng, m, ell_l, band, n=None):
-        n = m if n is None else n
-        base = np.arange(m)
-        idx = base[:, None] * (n / m) + rng.integers(
-            -band, band + 1, size=(m, ell_l))
-        idx = np.clip(idx, 0, n - 1).astype(np.int64)
-        val = rng.uniform(-1, 1, size=(m, ell_l))
-        rows = np.repeat(base, ell_l)
-        return sp.coo_matrix((val.ravel(), (rows, idx.ravel())),
-                             shape=(m, n)).tocsr()
-
-    def test_windowize_qualifies_banded(self, rng):
-        from rails_tpu.sparse.formats import sparse_from_scipy
-        a = self._banded_random(rng, 1024, 7, 60)
-        op = sparse_from_scipy(a, fmt="ell", dtype=jnp.float32)
-        assert op.fwd.well is not None
-        assert op.fwd.well.w % 128 == 0
-        # window must cover every chunk's span
-        assert op.fwd.well.w <= 512
-
-    def test_windowize_rejects_random(self, rng):
-        # genuinely random sparsity: window ~ n > cap -> no well payload
-        from rails_tpu.sparse.formats import sparse_from_scipy
-        a = sp.random(4096, 4096, density=0.002, random_state=7,
-                      format="csr")
-        op = sparse_from_scipy(a, fmt="ell", dtype=jnp.float32)
-        assert op.fwd.well is None
+class TestEllApply:
+    """The plain ELL apply (one gather + fused multiply-add per slot)
+    against scipy, across banded, jittered, random and rectangular
+    sparsity."""
 
     @pytest.mark.parametrize("m,ell_l,band", [
-        (1024, 7, 60),      # multiple chunks, medium window
-        (1100, 5, 33),      # m % 128 != 0 (padded-chunk path)
-        (512, 13, 150),     # wide window (nw > 2)
+        (1024, 7, 60),
+        (1100, 5, 33),      # m not a power of two
+        (512, 13, 150),     # wide band
     ])
-    def test_kernel_interpreter_matches_xla(self, rng, m, ell_l, band):
-        from jax.experimental.pallas import tpu as pltpu
-        from rails_tpu.sparse.ell_spmm import ell_spmm_t
-        from rails_tpu.sparse.formats import sparse_from_scipy
-        a = self._banded_random(rng, m, ell_l, band)
+    def test_banded_matches_scipy(self, rng, m, ell_l, band):
+        a = _banded_random(rng, m, ell_l, band)
         op = sparse_from_scipy(a, fmt="ell", dtype=jnp.float32)
-        ell = op.fwd
-        assert ell.well is not None
         x = jnp.asarray(rng.uniform(-1, 1, (m, 4)), dtype=jnp.float32)
-        with pltpu.force_tpu_interpret_mode():
-            y = ell_spmm_t(ell.well, x.T).T
-        assert np.allclose(np.asarray(y), a @ np.asarray(x), atol=1e-4)
+        np.testing.assert_allclose(np.asarray(op.matmat(x)),
+                                   a @ np.asarray(x), atol=1e-4)
 
     @pytest.mark.parametrize("s", [1, 3, 8])
-    def test_kernel_interpreter_odd_widths(self, rng, s):
-        # sublane padding: multivector widths that are not vreg-row
-        # multiples (s=1 Lanczos vectors, s=3 expand blocks)
-        from jax.experimental.pallas import tpu as pltpu
-        from rails_tpu.sparse.ell_spmm import ell_spmm_t
-        from rails_tpu.sparse.formats import sparse_from_scipy
-        m = 512
-        a = self._banded_random(rng, m, 5, 40)
-        op = sparse_from_scipy(a, fmt="ell", dtype=jnp.float32)
-        x = jnp.asarray(rng.uniform(-1, 1, (m, s)), dtype=jnp.float32)
-        with pltpu.force_tpu_interpret_mode():
-            y = ell_spmm_t(op.fwd.well, x.T).T
-        assert y.shape == (m, s)
-        assert np.allclose(np.asarray(y), a @ np.asarray(x), atol=1e-4)
+    def test_operand_widths(self, rng, s):
+        a = _banded_random(rng, 512, 5, 40)
+        op = sparse_from_scipy(a, fmt="ell")
+        x = jnp.asarray(rng.uniform(-1, 1, (512, s)))
+        y = op.matmat(x)
+        assert y.shape == (512, s)
+        np.testing.assert_allclose(np.asarray(y), a @ np.asarray(x),
+                                   atol=1e-12)
 
-    def test_multi_chunk_grouping(self, rng):
-        """nc=4 chunks share one super-window DMA (the grid-overhead
-        amortization that took the v5e kernel from 0.57 to 0.97 of the
-        gather-issue ceiling); grouped output == single-chunk kernel."""
-        from jax.experimental.pallas import tpu as pltpu
-        from rails_tpu.sparse.ell_spmm import (_ell_spmm_t_impl,
-                                               ell_spmm_t, ell_windowize)
-        m, ell_l, band, s = 2048, 6, 50, 5
-        a = self._banded_random(rng, m, ell_l, band)
-        deg = np.diff(a.indptr)
-        L = int(deg.max())
-        indices = np.repeat(a.indices[a.indptr[:-1]][:, None], L, axis=1)
-        values = np.zeros((m, L), np.float32)
-        rows = np.repeat(np.arange(m), deg)
-        slots = np.arange(a.nnz) - np.repeat(a.indptr[:-1], deg)
-        indices[rows, slots] = a.indices
-        values[rows, slots] = a.data
-        well = ell_windowize(indices, values, (m, m))
-        assert well.nc == 4 and well.w_super >= well.w
-        assert well.c0s.shape == (m // 128 // 4,)
-        x = jnp.asarray(rng.uniform(-1, 1, (s, m)), dtype=jnp.float32)
-        with pltpu.force_tpu_interpret_mode():
-            y_nc = ell_spmm_t(well, x)
-            y_1 = _ell_spmm_t_impl(well.c0, well.lidx, well.values,
-                                   jnp.pad(x, ((0, 3), (0, 0))), L,
-                                   well.w, m, well.lidx.shape[1])[:s]
-        assert np.allclose(np.asarray(y_nc), np.asarray(y_1), atol=1e-5)
-        assert np.allclose(np.asarray(y_nc), (a @ np.asarray(x).T).T,
-                           atol=1e-4)
-
-    def test_kernel_interpreter_rectangular(self, rng):
-        # (m, n) with n > m: windows live in column space
-        from jax.experimental.pallas import tpu as pltpu
-        from rails_tpu.sparse.ell_spmm import ell_spmm_t
-        from rails_tpu.sparse.formats import sparse_from_scipy
-        m, n = 512, 1024
-        a = self._banded_random(rng, m, 5, 40, n=n)
-        op = sparse_from_scipy(a, fmt="ell", dtype=jnp.float32)
-        assert op.fwd.well is not None
-        x = jnp.asarray(rng.uniform(-1, 1, (n, 3)), dtype=jnp.float32)
-        with pltpu.force_tpu_interpret_mode():
-            y = ell_spmm_t(op.fwd.well, x.T).T
-        assert y.shape == (m, 3)
-        assert np.allclose(np.asarray(y), a @ np.asarray(x), atol=1e-4)
-
-    @staticmethod
-    def _jittered_stencil(rng, m, offsets, jitter=4):
-        """Stencil with per-entry index jitter: the row patterns are
-        consistent across a chunk (entries bucket the same way), so the
-        sliced layout's padding stays ~2x - the post-RCM mesh shape."""
-        base = np.arange(m)
-        idx = base[:, None] + np.asarray(offsets)[None, :] + rng.integers(
-            -jitter, jitter + 1, size=(m, len(offsets)))
-        idx = np.clip(idx, 0, m - 1)
-        val = rng.uniform(-1, 1, size=idx.shape)
-        rows = np.repeat(base, len(offsets))
-        return sp.coo_matrix((val.ravel(), (rows, idx.ravel())),
-                             shape=(m, m)).tocsr()
-
-    def test_vmem_budget_guard(self, rng):
-        # wide multivectors overflow the (2, s_pad, w) window scratch;
-        # the dispatcher must fall back to XLA instead of failing
-        # Mosaic compilation (ADVICE r02)
-        from rails_tpu.sparse.ell_spmm import (
-            _SCRATCH_BUDGET_BYTES, window_fits_vmem)
-        from rails_tpu.sparse.formats import sparse_from_scipy
-        a = self._banded_random(rng, 1024, 7, 60)
-        op = sparse_from_scipy(a, fmt="ell", dtype=jnp.float32)
-        well = op.fwd.well
-        assert window_fits_vmem(well, 16)
-        s_over = _SCRATCH_BUDGET_BYTES // (2 * well.w * 4) + 8
-        assert not window_fits_vmem(well, s_over)
-        # the oversized apply still computes correctly via the XLA path
-        x = jnp.asarray(rng.uniform(-1, 1, (1024, 4)), jnp.float32)
-        y = np.asarray(op.matmat(x))
-        assert np.allclose(y, a @ np.asarray(x), atol=1e-4)
+    @pytest.mark.parametrize("m,n", [(512, 1024), (1024, 512)])
+    def test_rectangular(self, rng, m, n):
+        a = _banded_random(rng, m, 5, 40, n=n)
+        op = sparse_from_scipy(a, fmt="ell")
+        x = jnp.asarray(rng.uniform(-1, 1, (n, 3)))
+        xt = jnp.asarray(rng.uniform(-1, 1, (m, 3)))
+        np.testing.assert_allclose(np.asarray(op.matmat(x)),
+                                   a @ np.asarray(x), atol=1e-12)
+        np.testing.assert_allclose(np.asarray(op.rmatmat(xt)),
+                                   a.T @ np.asarray(xt), atol=1e-12)
 
     @pytest.mark.parametrize("m,offsets", [
         (1024, (-130, -60, -1, 0, 1, 59, 131)),
         (1100, (-40, 0, 41, 97, 160)),
     ])
-    def test_sliced_layout_matches(self, rng, m, offsets):
-        # sliced-window layout: one gather per slot from sb[chunk, slot]
-        from jax.experimental.pallas import tpu as pltpu
-        from rails_tpu.sparse.ell_spmm import ell_windowize, ell_spmm_t
-        a = self._jittered_stencil(rng, m, offsets)
-        import rails_tpu.sparse.formats as fm
-        ell = fm._ell_from_scipy(a, jnp.float32)
-        well = ell_windowize(np.asarray(ell.indices),
-                             np.asarray(ell.values), (m, m),
-                             layout="sliced")
-        assert well is not None and well.sb is not None
-        # padding bounded by the acceptance factor
-        assert well.lidx.shape[0] <= int(np.ceil(2.5 * ell.values.shape[1]))
-        # every live sliced entry's index is within one sub-block
-        assert int(jnp.max(well.lidx)) < 128
-        x = jnp.asarray(rng.uniform(-1, 1, (m, 4)), dtype=jnp.float32)
-        with pltpu.force_tpu_interpret_mode():
-            y = ell_spmm_t(well, x.T).T
-        assert np.allclose(np.asarray(y), a @ np.asarray(x), atol=1e-4)
+    def test_jittered_stencil(self, rng, m, offsets):
+        a = _jittered_stencil(rng, m, offsets)
+        op = sparse_from_scipy(a, fmt="ell")
+        x = jnp.asarray(rng.uniform(-1, 1, (m, 4)))
+        np.testing.assert_allclose(np.asarray(op.matmat(x)),
+                                   a @ np.asarray(x), atol=1e-12)
 
-    def test_sliced_rejects_costly_padding(self, rng):
-        # rows whose entries pile into one sub-block per row but different
-        # sub-blocks across rows force L' ~ nw*L -> masked layout wins
-        from rails_tpu.sparse.ell_spmm import ell_windowize
-        m, ell_l = 512, 8
-        idx = np.zeros((m, ell_l), np.int64)
-        for i in range(m):
-            base = (i % 4) * 128  # all 8 entries in one of 4 sub-blocks
-            idx[i] = base + np.arange(ell_l)
-        val = np.ones((m, ell_l))
-        rows = np.repeat(np.arange(m), ell_l)
-        a = sp.coo_matrix((val.ravel(), (rows, idx.ravel())),
-                          shape=(m, m)).tocsr()
-        import rails_tpu.sparse.formats as fm
-        ell = fm._ell_from_scipy(a, jnp.float32)
-        well = ell_windowize(np.asarray(ell.indices),
-                             np.asarray(ell.values), (m, m),
-                             layout="sliced")
-        assert well is None  # L' = 4*8 > 2.5*8
-        well_auto = ell_windowize(np.asarray(ell.indices),
-                                  np.asarray(ell.values), (m, m),
-                                  layout="auto")
-        assert well_auto is not None and well_auto.sb is None
+    def test_random_sparsity(self, rng):
+        a = sp.random(4096, 4096, density=0.002, random_state=7,
+                      format="csr")
+        op = sparse_from_scipy(a, fmt="ell")
+        x = jnp.asarray(rng.uniform(-1, 1, (4096, 2)))
+        np.testing.assert_allclose(np.asarray(op.matmat(x)),
+                                   a @ np.asarray(x), atol=1e-12)
 
-    def test_hyb_remainder_gets_windowed(self, rng):
-        # HYB split: dense diagonals -> DIA, strays -> ELL; the ELL
-        # remainder should carry a windowed payload when it is banded
-        from rails_tpu.sparse.formats import sparse_from_scipy
-        a = sp.csr_matrix(laplacian2(1024)).tolil()
-        base = np.arange(0, 1024, 16)
-        for i in base:
-            a[i, min(i + 37, 1023)] = 0.5   # off-stencil strays
-        op = sparse_from_scipy(a.tocsr(), fmt="hyb", dtype=jnp.float32)
-        assert op.format == "hyb"
-        assert op.fwd.ell.well is not None
+    def test_empty_rows_pad_row_local(self, rng):
+        """Empty rows and short rows pad with values 0 and row-local
+        indices, so a row slab's column span stays tight."""
+        a = sp.lil_matrix((64, 64))
+        for i in range(0, 64, 3):
+            a[i, max(i - 2, 0)] = 1.0
+            if i % 2:
+                a[i, min(i + 2, 63)] = 2.0
+        op = sparse_from_scipy(a.tocsr(), fmt="ell")
+        idx = np.asarray(op.fwd.indices)
+        assert np.abs(idx - np.arange(64)[:, None]).max() <= 2
+        x = jnp.asarray(rng.uniform(-1, 1, (64, 2)))
+        np.testing.assert_allclose(np.asarray(op.matmat(x)),
+                                   a @ np.asarray(x), atol=1e-12)
 
-    def test_astype_preserves_well(self, rng):
-        from rails_tpu.sparse.formats import sparse_from_scipy
-        a = self._banded_random(rng, 512, 5, 30)
+    def test_astype_casts_values(self, rng):
+        a = _banded_random(rng, 512, 5, 30)
         op = sparse_from_scipy(a, fmt="ell", dtype=jnp.float64)
-        assert op.fwd.well is not None
         op32 = op.astype(jnp.float32)
-        assert op32.fwd.well is not None
-        assert op32.fwd.well.values.dtype == jnp.float32
-        assert op32.fwd.well.w == op.fwd.well.w
+        assert op32.fwd.values.dtype == jnp.float32
+        assert op32.fwd.indices is op.fwd.indices
+
+    def test_hyb_parts_match(self, rng):
+        """HYB split: dense diagonals -> DIA, strays -> a skinny ELL;
+        the sum matches scipy."""
+        a = sp.csr_matrix(laplacian2(1024)).tolil()
+        for i in np.arange(0, 1024, 16):
+            a[i, min(i + 37, 1023)] = 0.5   # off-stencil strays
+        a = a.tocsr()
+        op = sparse_from_scipy(a, fmt="hyb", dtype=jnp.float32)
+        assert op.format == "hyb"
+        assert op.fwd.ell.values.shape[1] <= 2
+        x = jnp.asarray(rng.uniform(-1, 1, (1024, 3)), jnp.float32)
+        np.testing.assert_allclose(np.asarray(op.matmat(x)),
+                                   a @ np.asarray(x), atol=1e-4)
 
     def test_ell_pytree_roundtrip(self, rng):
-        # well rides the pytree through jit
-        import jax
-        from rails_tpu.sparse.formats import sparse_from_scipy
-        a = self._banded_random(rng, 512, 5, 30)
+        a = _banded_random(rng, 512, 5, 30)
         op = sparse_from_scipy(a, fmt="ell")
         x = jnp.asarray(rng.uniform(-1, 1, (512, 3)))
         y = jax.jit(lambda o, v: o.matmat(v))(op, x)
         assert np.allclose(np.asarray(y), a @ np.asarray(x), atol=1e-10)
-
-
-class TestWideSpmm:
-    """Dense-window MXU kernel for wide multivectors
-    (rails_tpu/sparse/wide_spmm.py, VERDICT r04 item 4): the gather
-    kernel's escape route at s >= 64, probed live in round 4
-    (ell_spmm.py docstring route 3)."""
-
-    @staticmethod
-    def _banded(rng, m, ell_l, band):
-        return TestEllSpmmKernel._banded_random(rng, m, ell_l, band)
-
-    def test_build_and_interpreter_matches(self, rng):
-        from jax.experimental.pallas import tpu as pltpu
-
-        from rails_tpu.sparse.formats import sparse_from_scipy
-        from rails_tpu.sparse.wide_spmm import wide_spmm_t
-
-        m, s = 512, 64
-        a = self._banded(rng, m, 4, 32)
-        op = sparse_from_scipy(a, fmt="ell", dtype=jnp.float32,
-                               wide_s=True)
-        wide = op.fwd.wide
-        assert wide is not None and wide.passes == 3
-        x = jnp.asarray(rng.uniform(-1, 1, (m, s)), dtype=jnp.float32)
-        with pltpu.force_tpu_interpret_mode():
-            y = wide_spmm_t(wide, x.T).T
-        ref = a @ np.asarray(x)
-        scale = np.abs(ref).max()
-        # 3-pass bf16: ~2^-17 split residual per operand (~1.5e-5 rel)
-        assert np.allclose(np.asarray(y), ref, atol=8e-5 * scale)
-
-    def test_six_pass_is_f32_grade(self, rng):
-        from jax.experimental.pallas import tpu as pltpu
-
-        from rails_tpu.sparse.formats import sparse_from_scipy
-        from rails_tpu.sparse.wide_spmm import (build_wide_window,
-                                                wide_spmm_t)
-
-        m, s = 512, 72
-        a = self._banded(rng, m, 5, 40)
-        op = sparse_from_scipy(a, fmt="ell", dtype=jnp.float32)
-        wide6 = build_wide_window(op.fwd.well, passes=6)
-        assert wide6 is not None and wide6.passes == 6
-        x = jnp.asarray(rng.uniform(-1, 1, (m, s)), dtype=jnp.float32)
-        with pltpu.force_tpu_interpret_mode():
-            y = wide_spmm_t(wide6, x.T).T
-        ref = a @ np.asarray(x)
-        scale = np.abs(ref).max()
-        assert np.allclose(np.asarray(y), ref, atol=5e-7 * scale)
-
-    def test_odd_widths_padded(self, rng):
-        from jax.experimental.pallas import tpu as pltpu
-
-        from rails_tpu.sparse.formats import sparse_from_scipy
-        from rails_tpu.sparse.wide_spmm import wide_spmm_t
-
-        m, s = 512, 67  # not a vreg-row multiple
-        a = self._banded(rng, m, 4, 32)
-        op = sparse_from_scipy(a, fmt="ell", dtype=jnp.float32,
-                               wide_s=True)
-        x = jnp.asarray(rng.uniform(-1, 1, (m, s)), dtype=jnp.float32)
-        with pltpu.force_tpu_interpret_mode():
-            y = wide_spmm_t(op.fwd.wide, x.T).T
-        assert y.shape == (m, s)
-        ref = a @ np.asarray(x)
-        assert np.allclose(np.asarray(y), ref,
-                           atol=8e-5 * np.abs(ref).max())
-
-    def test_dispatch_gating(self, rng):
-        """wide_spmm declines off-TPU, for narrow operands, and for
-        payloads without the wide window - the callers fall through to
-        the gather/XLA paths."""
-        from rails_tpu.sparse.formats import sparse_from_scipy
-        from rails_tpu.sparse.wide_spmm import wide_spmm
-
-        m = 512
-        a = self._banded(rng, m, 4, 32)
-        op = sparse_from_scipy(a, fmt="ell", dtype=jnp.float32,
-                               wide_s=True)
-        x = jnp.asarray(rng.uniform(-1, 1, (m, 64)), dtype=jnp.float32)
-        assert wide_spmm(op.fwd, x) is None  # cpu backend
-        bare = sparse_from_scipy(a, fmt="ell", dtype=jnp.float32)
-        assert bare.fwd.wide is None
-
-    def test_bytes_cap_refuses(self, rng):
-        from rails_tpu.sparse.formats import sparse_from_scipy
-        from rails_tpu.sparse.wide_spmm import build_wide_window
-
-        a = self._banded(rng, 512, 4, 32)
-        op = sparse_from_scipy(a, fmt="ell", dtype=jnp.float32)
-        assert build_wide_window(op.fwd.well, bytes_cap=1000) is None
-
-    def test_pytree_roundtrip(self, rng):
-        from rails_tpu.sparse.formats import sparse_from_scipy
-
-        a = self._banded(rng, 512, 4, 32)
-        op = sparse_from_scipy(a, fmt="ell", dtype=jnp.float32,
-                               wide_s=True)
         leaves, treedef = jax.tree_util.tree_flatten(op)
-        op2 = jax.tree_util.tree_unflatten(treedef, leaves)
-        assert op2.fwd.wide is not None
-        assert op2.fwd.wide.w == op.fwd.wide.w
+        assert len(leaves) == 4   # fwd and bwd: indices, values
 
 
 class TestHubSplit:
-    """Hub-splitting for power-law sparsity (rails_tpu/sparse/hub.py,
-    VERDICT r04 item 5): dense MXU hub rows + compact-window hub
-    columns + windowized bulk."""
+    """Hub-splitting for power-law sparsity (rails_tpu/sparse/hub.py):
+    dense hub rows + compacted hub columns + a low-degree ELL bulk."""
 
     @staticmethod
     def _superhub(rng, m=1024, ell_l=4, band=24, n_hubs=8, hub_deg=200):
         """Banded bulk plus a few superhub rows/columns - the realistic
         scale-free-with-locality class the split targets."""
-        a = TestEllSpmmKernel._banded_random(rng, m, ell_l, band).tolil()
+        a = _banded_random(rng, m, ell_l, band).tolil()
         hubs = rng.choice(m, n_hubs, replace=False)
         for hb in hubs:
             cols = rng.choice(m, hub_deg, replace=False)
@@ -645,7 +429,8 @@ class TestHubSplit:
         a = self._superhub(rng)
         op = hub_operator(a, max_hubs=16, degree_factor=6.0)
         assert op.hub_idx.shape[0] > 0
-        assert op.rest.well is not None  # bulk windowizes
+        # the bulk keeps the banded degree: no hub pads the remainder
+        assert op.rest.values.shape[1] <= 4
         x = jnp.asarray(rng.uniform(-1, 1, (a.shape[0], 5)))
         np.testing.assert_allclose(np.asarray(op.matmat(x)),
                                    a @ np.asarray(x), atol=1e-11)
@@ -692,9 +477,9 @@ class TestHubSplit:
         assert np.linalg.norm(r, 2) / r0 < 1e-5
 
     def test_ba_coverage_is_sqrt_bounded(self, rng):
-        """Pure Barabasi-Albert: hub coverage of a w-bounded set is
-        ~sqrt(w/m) - the recorded reason no VMEM-window split pays
-        there (module docstring; probe_hub_ba.py at m=2^20)."""
+        """Pure Barabasi-Albert: hub coverage of a bounded hub set is
+        ~sqrt(h/m), so the split leaves most of the matrix in the
+        remainder (module docstring)."""
         from rails_tpu.sparse.hub import hub_coverage
 
         m, k = 4096, 4
@@ -716,8 +501,8 @@ class TestHubSplit:
 
 
 class TestReorder:
-    """RCM bandwidth reduction -> DIA-kernel-friendly structure (TPU-native
-    enhancement; no reference analogue, see rails_tpu/sparse/reorder.py)."""
+    """RCM bandwidth reduction -> DIA-friendly structure (no reference
+    analogue, see rails_tpu/sparse/reorder.py)."""
 
     def test_rcm_recovers_banded_structure(self, rng):
         from rails_tpu.sparse.reorder import (
